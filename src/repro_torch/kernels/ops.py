@@ -11,6 +11,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.page_copy import page_gather as _gather_cuda
+from repro_torch.kernels.page_copy import page_scatter as _scatter_cuda
 from repro_torch.kernels.paged_decode import paged_decode as _paged_cuda
 
 
@@ -22,3 +24,25 @@ def paged_decode(q: torch.Tensor, k_pages, v_pages, block_table,
         return ref.paged_decode_ref(q, k_pages, v_pages, block_table,
                                     seq_lens)
     return _paged_cuda(q, k_pages, v_pages, block_table, seq_lens)
+
+
+def page_gather(k_pages: torch.Tensor, v_pages: torch.Tensor,
+                ids: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Pull pages `ids` out of the (L,P,page,K,hd) pools into dense
+    (N,L,page,K,hd) stacks (the demotion and export staging layout)."""
+    if k_pages.device.type == "cpu":
+        return (ref.page_gather_ref(k_pages, ids),
+                ref.page_gather_ref(v_pages, ids))
+    return _gather_cuda(k_pages, v_pages, ids)
+
+
+def page_scatter(k_pages: torch.Tensor, v_pages: torch.Tensor,
+                 k_stack: torch.Tensor, v_stack: torch.Tensor,
+                 ids: torch.Tensor) -> None:
+    """Write staged stacks back into the pools at page slots `ids` (unique),
+    in place."""
+    if k_pages.device.type == "cpu":
+        ref.page_scatter_ref(k_pages, k_stack, ids)
+        ref.page_scatter_ref(v_pages, v_stack, ids)
+        return
+    _scatter_cuda(k_pages, v_pages, k_stack, v_stack, ids)

@@ -35,3 +35,16 @@ def paged_decode_ref(q, k_pages, v_pages, block_table, seq_lens) -> torch.Tensor
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.einsum("bkgt,btkh->bkgh", probs, v)
     return out.reshape(B, H, hd)
+
+
+def page_gather_ref(pool, ids) -> torch.Tensor:
+    """pool: (L, P, page, K, hd); ids: (N,) int32 page slots. Returns the
+    dense page stack (N, L, page, K, hd), a new tensor."""
+    return pool[:, ids.long()].transpose(0, 1).contiguous()
+
+
+def page_scatter_ref(pool, staged, ids) -> torch.Tensor:
+    """Inverse of `page_gather_ref`: write `staged` (N, L, page, K, hd) into
+    the pool at page slots `ids` (unique), IN PLACE. Returns `pool`."""
+    pool[:, ids.long()] = staged.transpose(0, 1).to(pool.dtype)
+    return pool

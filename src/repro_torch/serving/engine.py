@@ -10,10 +10,9 @@ module turns finished sequences into `GenResult`s.
 probes (§3.3).
 
 The device is explicit: `device=None` means "cuda", and without CUDA the
-engine raises unless the caller asked for `device="cpu"`. What this slice
-of the port does not carry yet is refused loudly, never approximated:
-speculative decoding (`spec_k > 0`), the host KV tier (`host_pages > 0`)
-and MoE models raise `NotImplementedError`.
+engine raises unless the caller asked for `device="cpu"`. What the port
+does not carry yet is refused loudly, never approximated: speculative
+decoding (`spec_k > 0`) and MoE models raise `NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -41,7 +40,9 @@ class EngineConfig:
     scratch_pages: int = 1        # reserved ids for padding block tables
     prefill_chunk: int = 0        # max tokens per prefill call; 0 = whole suffix
     preemption: bool = False      # priority preemption (recompute on resume)
-    host_pages: int = 0           # host-memory KV tier: not ported yet (0 only)
+    host_pages: int = 0           # host-memory KV tier pages; 0 = tier off
+    overlap_loads: bool = True    # async H2D load-back staging (False =
+                                  # block at dispatch; benchmark contrast)
     bucket_shapes: bool = True    # pow2 shape buckets; False = exact shapes
     packed_prefill: bool = True   # admissions packed into one call;
                                   # False = one prefill_step per request
@@ -77,10 +78,6 @@ class Engine:
             raise NotImplementedError(
                 "speculative decoding (spec_k > 0) is a later slice of the "
                 "port, with the paged_verify kernel")
-        if ecfg.host_pages > 0:
-            raise NotImplementedError(
-                "the host KV tier (host_pages > 0) is a later slice of the "
-                "port, with the page_gather/page_scatter kernels")
         self.device = resolve_device(device)
         on = {t.device.type for t in leaves(params)}
         if on != {self.device.type}:
@@ -93,12 +90,14 @@ class Engine:
             model_cfg, params, n_pages=ecfg.n_pages, page_size=ecfg.page_size,
             device=self.device, prefill_pad=ecfg.prefill_pad, seed=seed,
             bucket_shapes=ecfg.bucket_shapes,
-            packed_prefill=ecfg.packed_prefill)
+            packed_prefill=ecfg.packed_prefill,
+            overlap_loads=ecfg.overlap_loads)
         self.core = ReplicaCore(ReplicaCoreConfig(
             page_size=ecfg.page_size, n_pages=ecfg.n_pages,
             max_batch=ecfg.max_batch, max_seq_len=ecfg.max_seq_len,
             prefill_chunk=ecfg.prefill_chunk, preemption=ecfg.preemption,
             reserved_pages=ecfg.scratch_pages,
+            host_pages=ecfg.host_pages,
             discipline=ecfg.discipline,
             cache_discount=ecfg.cache_discount,
             shed_deadline=ecfg.shed_deadline), self.backend)
@@ -133,6 +132,10 @@ class Engine:
     @property
     def running(self):
         return self.core.running
+
+    @property
+    def loading(self):
+        return self.core.loading
 
     @property
     def alloc(self):
@@ -264,9 +267,32 @@ class Engine:
     def run_until_idle(self, max_steps: int = 100_000) -> dict[int, GenResult]:
         for _ in range(max_steps):
             self.step()
-            if not self.core.running and not self.core.pending:
+            if (not self.core.running and not self.core.pending
+                    and not self.core.loading):
                 break
         return self.results
+
+    # ------------------------------------------- cross-region KV transfer
+    def export_prefix(self, tokens: tuple):
+        """KV bytes for the longest device-cached full-page prefix of
+        `tokens`: (n_tokens, k_stack, v_stack), the stacks CPU tensors
+        (N, L, page, K, hd) — the pull-prefix payload."""
+        n, pages = self.core.radix.match(tuple(tokens))
+        if not pages:
+            return 0, None, None
+        k_stack, v_stack = self.backend.export_pages(pages)
+        return n, k_stack, v_stack
+
+    def import_prefix(self, tokens: tuple, k_stack, v_stack) -> int:
+        """Install a pulled prefix: claim radix pages for the uncached
+        blocks of `tokens` and scatter the transferred KV into them.
+        Returns tokens now locally cached (capacity-capped)."""
+        n, start_block, new_pages = self.core.inject_prefix(tuple(tokens))
+        if new_pages:
+            rows = slice(start_block, start_block + len(new_pages))
+            self.backend.import_pages(new_pages, k_stack[rows],
+                                      v_stack[rows])
+        return n
 
     def generate(self, reqs: list[GenRequest]) -> list[GenResult]:
         """Batched blocking API: submit all, run to completion, return in

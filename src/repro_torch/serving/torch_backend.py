@@ -22,12 +22,24 @@ preemption, chunking) stays in `repro_torch.replica.core.ReplicaCore`.
            boundary token sampled on device. `mr.prefill_step` serves
            `packed_prefill=False`.
 
+  host     The host KV tier (`ReplicaCoreConfig.host_pages > 0`): a CPU
+           mirror of demoted pages, pinned when the pool is on the card.
+           Demotions queue and flush at the head of the next dispatch that
+           writes the pool (one `page_gather` launch and one synchronous
+           D2H per flush); a load-back copies its pages into pinned staging
+           and starts a non-blocking H2D on a side stream at admission, and
+           `finish_load` makes the compute stream wait on that copy before
+           one `page_scatter` launch writes the pool in place.
+
+  transfer Cross-region pull-prefix: `export_pages` gathers device pages
+           into CPU stacks (the wire format), `import_pages` scatters them
+           into local pages.
+
 Sampling is per sequence and keyed on (engine seed, request seed, token
 position), so bucketing can never change a sampled token.
 
-Not in this backend yet (later slices of the port): the host KV tier
-(`on_demote` / `load_pages` / `finish_load`), cross-region page export and
-import, and speculative `decode_many`.
+Not in this backend yet (a later slice of the port): speculative
+`decode_many`.
 """
 from __future__ import annotations
 
@@ -38,6 +50,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
 from repro_torch.models.transformer import leaves
 from repro_torch.serving import model_runner as mr
 from repro_torch.serving.bucketing import bucket, pow2_pad, token_pad
@@ -54,7 +67,7 @@ class TorchPagedBackend:
     def __init__(self, model_cfg: ModelConfig, params: Any, *,
                  n_pages: int, page_size: int, device, prefill_pad: int = 64,
                  seed: int = 0, bucket_shapes: bool = True,
-                 packed_prefill: bool = True):
+                 packed_prefill: bool = True, overlap_loads: bool = True):
         self.cfg = model_cfg
         self.params = params
         self.device = torch.device(device)
@@ -62,6 +75,7 @@ class TorchPagedBackend:
         self.prefill_pad = prefill_pad
         self.bucket_shapes = bucket_shapes
         self.packed_prefill = packed_prefill
+        self.overlap_loads = overlap_loads
         kv_dtype = next(leaves(params)).dtype       # the KV pool's dtype
         self.k_pages, self.v_pages = mr.init_kv_pool(
             model_cfg, n_pages, page_size, kv_dtype, self.device)
@@ -70,6 +84,16 @@ class TorchPagedBackend:
         # distinct (nb, npgb) decode buckets run so far: bounded by the
         # bucket ladders, the analog of the JAX step's compile count
         self.decode_buckets: set = set()
+        # host KV tier (allocated at bind when the core enables it)
+        self._h_k: Optional[torch.Tensor] = None
+        self._h_v: Optional[torch.Tensor] = None
+        self._demote_q: list[tuple[int, int]] = []   # (dev_page, host_page)
+        self._staging: dict = {}                     # seq -> staged H2D copy
+        self._on_card = self.device.type == "cuda"
+        self._copy_stream = None                     # load-backs' H2D
+        self.demoted_pages = 0
+        self.loaded_pages = 0
+        self.flushes = 0             # non-empty demotion flushes, a gather each
 
     def bind(self, core) -> None:
         if not core.reserved:
@@ -97,6 +121,127 @@ class TorchPagedBackend:
         self._dstate: Optional[dict] = None
         self._nb = 0
         self._npgb = 0
+        if ccfg.host_pages:
+            # (host_pages, L, page, K, hd): numpy has no bf16, so the mirror
+            # is a CPU tensor, pinned when the pool is on the card
+            shp = (ccfg.host_pages,) + self.k_pages.shape[:1] \
+                + self.k_pages.shape[2:]
+            self._h_k = self._host_empty(shp).zero_()
+            self._h_v = self._host_empty(shp).zero_()
+            if self._on_card:
+                self._copy_stream = torch.cuda.Stream(self.device)
+
+    def _host_empty(self, shape) -> torch.Tensor:
+        return torch.empty(shape, dtype=self.k_pages.dtype,
+                           pin_memory=self._on_card)
+
+    def _ids(self, pages) -> torch.Tensor:
+        """Device page ids for a copy kernel, checked on the host: on the
+        card an id outside the pool is an illegal address, where the TPU's
+        DMA clamps."""
+        a = np.asarray(list(pages), np.int64)
+        P = self.k_pages.shape[1]
+        if a.size and (a.min() < 0 or a.max() >= P):
+            raise ValueError(f"page ids {a.tolist()} outside the pool's "
+                             f"[0, {P})")
+        return torch.tensor(a, dtype=torch.int32, device=self.device)
+
+    # --------------------------------------------------------- host tier
+    def on_demote(self, dev_page: int, host_page: int) -> None:
+        """Radix demotion hook: queue the D2H snapshot. The gather runs
+        lazily at the next dispatch boundary — the pool still holds the
+        page's KV then, because freed pages are only REWRITTEN by a later
+        prefill/scatter dispatch, and every such dispatch flushes first."""
+        self._demote_q.append((dev_page, host_page))
+
+    def _flush_demotes(self) -> None:
+        if not self._demote_q:
+            return
+        q, self._demote_q = self._demote_q, []
+        ks, vs = ops.page_gather(self.k_pages, self.v_pages,
+                                 self._ids(d for d, _ in q))
+        if self._on_card:
+            # one synchronous D2H per flush (both stacks, then one sync)
+            kh, vh = self._host_empty(ks.shape), self._host_empty(vs.shape)
+            kh.copy_(ks, non_blocking=True)
+            vh.copy_(vs, non_blocking=True)
+            torch.cuda.current_stream(self.device).synchronize()
+            ks, vs = kh, vh
+        hp = torch.tensor([h for _, h in q], dtype=torch.int64)
+        self._h_k.index_copy_(0, hp, ks)
+        self._h_v.index_copy_(0, hp, vs)
+        self.demoted_pages += len(q)
+        self.flushes += 1
+
+    def load_pages(self, seq, pairs) -> None:
+        """Dispatch the host->device copy for a LOADING admission: the
+        staged stacks start their H2D transfer NOW (non-blocking, on a side
+        stream) and land in the pool at `finish_load` — the transfer
+        overlaps this step's decode. Per-seq staging entries double-buffer
+        concurrent loads."""
+        self._flush_demotes()
+        dev_ids = [dp for _, dp in pairs]
+        hp = torch.tensor([h for h, _ in pairs], dtype=torch.int64)
+        # index_select into pinned staging: fancy indexing of a pinned
+        # tensor returns unpinned memory, whose H2D would be synchronous
+        k_st = self._host_empty((len(pairs),) + self._h_k.shape[1:])
+        v_st = self._host_empty(k_st.shape)
+        torch.index_select(self._h_k, 0, hp, out=k_st)
+        torch.index_select(self._h_v, 0, hp, out=v_st)
+        if not self._on_card:
+            self._staging[seq] = (dev_ids, k_st, v_st, None)
+            return
+        with torch.cuda.stream(self._copy_stream):
+            k_dev = k_st.to(self.device, non_blocking=True)
+            v_dev = v_st.to(self.device, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(self._copy_stream)
+        if not self.overlap_loads:                   # serialize (benchmarks)
+            done.synchronize()
+        # the pinned staging may go now: the host caching allocator records
+        # an event on each non-blocking copy out of pinned memory and reuses
+        # the block only once that copy has ended
+        self._staging[seq] = (dev_ids, k_dev, v_dev, done)
+
+    def finish_load(self, seq) -> None:
+        self._flush_demotes()
+        dev_ids, k_dev, v_dev, done = self._staging.pop(seq)
+        if done is not None:
+            # the scatter runs on the compute stream: wait for the side
+            # stream's copy, and tell the allocator the side stream's
+            # tensors are used here until the scatter ends
+            cur = torch.cuda.current_stream(self.device)
+            cur.wait_event(done)
+            k_dev.record_stream(cur)
+            v_dev.record_stream(cur)
+        ops.page_scatter(self.k_pages, self.v_pages, k_dev, v_dev,
+                         self._ids(dev_ids))
+        self.loaded_pages += len(dev_ids)
+
+    def abort_load(self, seq) -> None:
+        staged = self._staging.pop(seq, None)
+        if staged is not None and staged[3] is not None:
+            staged[3].synchronize()      # never free buffers mid-copy
+
+    # ------------------------------------------- cross-engine KV transfer
+    def export_pages(self, pages: list) -> tuple:
+        """Pull the KV of `pages` (device page ids) into CPU stacks
+        (N, L, page, K, hd) — the wire format of cross-region
+        pull-prefix."""
+        self._flush_demotes()
+        ks, vs = ops.page_gather(self.k_pages, self.v_pages,
+                                 self._ids(pages))
+        return ks.cpu(), vs.cpu()
+
+    def import_pages(self, pages: list, k_stack, v_stack) -> None:
+        """Write transferred KV stacks (CPU tensors) into local device
+        `pages`."""
+        self._flush_demotes()
+        ops.page_scatter(
+            self.k_pages, self.v_pages,
+            k_stack.to(self.device, self.k_pages.dtype).contiguous(),
+            v_stack.to(self.device, self.k_pages.dtype).contiguous(),
+            self._ids(pages))
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         # a copy on every device: on the CPU a view would alias the host
@@ -119,6 +264,7 @@ class TorchPagedBackend:
     def prefill(self, seq, start: int, end: int, sample: bool) -> Optional[int]:
         """One-request path (`packed_prefill=False`); the packed path below
         is the default."""
+        self._flush_demotes()
         ps = self.page_size
         suffix = seq.tokens[start:end]
         S = self._token_pad(len(suffix))
@@ -151,6 +297,7 @@ class TorchPagedBackend:
         items: [(seq, start, end, sample)] with page-aligned starts."""
         if not self.packed_prefill:
             return [self.prefill(seq, s, e, smp) for seq, s, e, smp in items]
+        self._flush_demotes()
         ps = self.page_size
         nseg = len(items)
         seg_lens = [end - start for _, start, end, _ in items]
@@ -216,6 +363,7 @@ class TorchPagedBackend:
 
     # ------------------------------------------------------------ decode
     def decode(self, seqs) -> list[int]:
+        self._flush_demotes()
         n = len(seqs)
         if not self._slots_current(seqs):
             self._sync_slots(seqs)

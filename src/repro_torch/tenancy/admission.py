@@ -1,10 +1,10 @@
 # Copy of src/repro/tenancy/admission.py (no import of the JAX package).
 """Deadline-aware admission control: shed what cannot possibly make it.
 
-Uses `predict_ttft` — the same snapshot-only TTFT estimate the hedging
-policy of `src/repro/routing/hedging.py` trusts, copied here — but draws
-the opposite conclusion: where hedging DUPLICATES a salvageable request,
-shedding REFUSES an unsalvageable one. When the predicted queueing + prefill delay already
+Reuses `repro.routing.hedging.predict_ttft` — the same snapshot-only TTFT
+estimate the hedging policy trusts — but draws the opposite conclusion:
+where hedging DUPLICATES a salvageable request, shedding REFUSES an
+unsalvageable one. When the predicted queueing + prefill delay already
 exceeds a request's deadline at admission time, burning prefill on it
 only makes every other request later; the request is resolved immediately
 with `FinishReason.SHED` so the client can retry elsewhere.
@@ -33,17 +33,6 @@ class AdmissionParams:
 DEFAULT_ADMISSION = AdmissionParams()
 
 
-def predict_ttft(prompt_len: int, pending: int, outstanding: int,
-                 params) -> float:
-    """Snapshot-only TTFT estimate at one replica: queueing behind its
-    pending admissions, decode interference from its running batch, then
-    the request's own (worst-case: uncached) prefill. (Copy of
-    `src/repro/routing/hedging.py:predict_ttft`.)"""
-    return (pending * params.queue_wait_s
-            + outstanding * params.per_outstanding_s
-            + prompt_len / params.prefill_tps)
-
-
 def should_shed(prompt_len: int, pending: int, outstanding: int,
                 deadline_s: Optional[float],
                 params: AdmissionParams = DEFAULT_ADMISSION) -> bool:
@@ -52,6 +41,10 @@ def should_shed(prompt_len: int, pending: int, outstanding: int,
     are never shed — they have nothing to blow."""
     if deadline_s is None:
         return False
+    # imported lazily: repro.routing.core imports this module at load time,
+    # and pulling repro.routing.hedging here would run repro.routing's
+    # package __init__ mid-import (circular); by first call, routing is up
+    from repro_torch.routing.hedging import predict_ttft
     pred = predict_ttft(int(prompt_len), int(pending), int(outstanding),
                         params)
     return pred > params.slack_frac * float(deadline_s)

@@ -210,7 +210,15 @@ def test_engine_needs_cuda_unless_asked_for_cpu(torch_qwen):
 
 @pytest.mark.parametrize("what", ["spec_k", "host_pages", "moe"])
 def test_unported_paths_raise(torch_qwen, what):
+    """Speculation and MoE are refused; the host KV tier, refused until its
+    slice landed, is now accepted and allocates its host mirror."""
     cfg, params = torch_qwen
+    if what == "host_pages":
+        eng = Engine(cfg, params, EngineConfig(**{what: 2}), device="cpu")
+        assert eng.core.cfg.host_pages == 2
+        assert eng.backend._h_k.shape == (2,) + eng.backend.k_pages.shape[:1] \
+            + eng.backend.k_pages.shape[2:]
+        return
     if what == "moe":
         moe = get_config("granite-moe-1b-a400m").reduced()
         with pytest.raises(NotImplementedError, match="MoE"):
