@@ -9,7 +9,10 @@ Phases, in order; any failure exits non-zero:
      per source, all started together) and print the build seconds;
   3. hold each kernel against its plain PyTorch version on the card:
      paged_decode at Llama-3.1-8B decode shapes, ragged lengths and garbage
-     block tables; page_gather / page_scatter at the full-width
+     block tables; paged_verify at Llama-3.1-8B verify shapes (B=8, Q=4)
+     on a layer of the full-width pool, lens from Q to 3001 across page
+     edges, garbage tables, and at Q=1 against the paged_decode kernel;
+     page_gather / page_scatter at the full-width
      Llama-3.1-8B pool (32 x 1024 x 16 x 8 x 128), bf16 and fp32, bit for
      bit, with untouched pages and a gather/scatter round trip checked;
   4. serve multi-turn sessions that share prefixes through the port's
@@ -24,12 +27,20 @@ Phases, in order; any failure exits non-zero:
      regions of one engine each (one shared params dict) pulls a cached
      prefix across regions; the PULL decision, the pulled request's cached
      tokens and the imported bytes are checked;
+  4d. speculation at full width (spec_k=3) on phase 4's requests, with the
+     target as its own drafter and with a random 2-layer drafter: every
+     request's exact budget, paged_verify launched n_layers x spec
+     dispatches and paged_decode drafter layers x (k+1) x spec dispatches;
+     with the target as drafter, more than one token per sequence-step;
+     acceptance and agreement with phase 4's streams are printed;
   5. check the engine's tokens against its plain CPU path on a small
-     fp32 model: plain serving, the host tier, and one router pull;
-  6. print measurements (engine throughput, a profile of steady decode
-     steps, each kernel's time beside its bound, its plain version's and
-     its library call's time, the host tier's D2H / H2D rates and a
-     pull's time per MB) with the card's name and power limit,
+     fp32 model: plain serving, the host tier, one router pull, and
+     speculation (both drafters) against the plain non-speculative tokens;
+  6. print measurements (engine throughput, each kernel's time beside its
+     bound, its plain version's and its library call's time, profiles of
+     steady plain and speculative decode steps at batch 8, the host
+     tier's D2H / H2D rates and a pull's time per MB) with the card's name
+     and power limit,
      the kernel table as one JSON line, and last the result line
      {"ok": true, "device": {...}}.
 
@@ -38,6 +49,7 @@ port's sources are not beside this script.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -49,7 +61,8 @@ from pathlib import Path
 DEVICE = "cuda"
 MODEL = "llama31-8b"               # the paper's serving model, full width
 SMALL = "llama31-8b-reduced"       # the fp32 model of the CPU token check
-KERNELS = ("paged_decode", "page_copy")   # csrc/<name>.cu
+KERNELS = ("paged_decode", "paged_verify", "page_copy")   # csrc/<name>.cu
+SPEC_K = 3                         # drafts per speculative step
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
 TOL = {"torch.bfloat16": 2e-2, "torch.float32": 2e-5}
@@ -135,24 +148,28 @@ def check_close(name: str, got, want) -> float:
     return err
 
 
-def check_rows(name: str, got, q, k_pages, v_pages, table, lens) -> float:
-    """Hold each (sequence, head) row of a paged decode output against the
-    plain version run in fp32 on the same inputs, upcast: the row's max
-    error over the row's max |value|. A long context's outputs are small,
-    so a fixed absolute tolerance barely binds there; this bound holds
-    every row as tightly as the output's own rounding allows."""
+def check_rows(name: str, got, q, k_pages, v_pages, table, lens,
+               plain=None) -> float:
+    """Hold each (sequence, [query,] head) row of a paged attention output
+    against the plain version (`paged_decode_ref` unless `plain` is given)
+    run in fp32 on the same inputs, upcast: the row's max error over the
+    row's max |value|. A long context's outputs are small, so a fixed
+    absolute tolerance barely binds there; this bound holds every row as
+    tightly as the output's own rounding allows."""
+    import numpy as np
     from repro_torch.kernels import ref
-    want = ref.paged_decode_ref(q.float(), k_pages.float(), v_pages.float(),
-                                table, lens)
+    want = (plain or ref.paged_decode_ref)(
+        q.float(), k_pages.float(), v_pages.float(), table, lens)
     row_err = ((got.float() - want).abs().amax(-1)
                / want.abs().amax(-1).clamp_min(1e-30))
     worst = float(row_err.max())
     tol = ROW_RTOL[str(got.dtype)]
     if not worst <= tol:
-        b, h = divmod(int(row_err.argmax()), row_err.shape[1])
-        fail(f"{name}: row (seq {b}, head {h}, len {int(lens[b])}) max "
-             f"|err| / max |want| = {worst:.3e} beyond {tol} against the "
-             f"fp32 plain version")
+        at = tuple(int(i) for i in np.unravel_index(int(row_err.argmax()),
+                                                    tuple(row_err.shape)))
+        fail(f"{name}: row {at} (seq, [query,] head; len "
+             f"{int(lens[at[0]])}) max |err| / max |want| = {worst:.3e} "
+             f"beyond {tol} against the fp32 plain version")
     return worst
 
 
@@ -175,15 +192,20 @@ def paged_bound(q, k_pages, table, lens) -> tuple[float, str]:
                                        else "operations")
 
 
-def kernel_inputs(dtype, lens, seed: int):
-    """Llama-3.1-8B decode shapes: H=32, K=8, hd=128, page=16, with every
-    table entry past a sequence's ragged edge set to garbage."""
+def kernel_inputs(dtype, lens, seed: int, Q=None):
+    """Llama-3.1-8B attention shapes: H=32, K=8, hd=128, page=16, with
+    every table entry past a sequence's ragged edge set to garbage (-1 or
+    2**31-1). Decode (Q None): q (B, H, hd) over a pool just large enough;
+    verify: q (B, Q, H, hd) over one layer of the full-width pool, lens
+    counting the Q candidates."""
     import torch
     g = torch.Generator(device=DEVICE).manual_seed(seed)
     B, H, K, hd, page = len(lens), 32, 8, 128, 16
     npg = max(-(-n // page) for n in lens)
-    n_pages = sum(-(-n // page) for n in lens) + 8
-    q = torch.randn((B, H, hd), generator=g, device=DEVICE).to(dtype)
+    n_pages = (sum(-(-n // page) for n in lens) + 8 if Q is None
+               else POOL[1])
+    q = torch.randn((B, H, hd) if Q is None else (B, Q, H, hd),
+                    generator=g, device=DEVICE).to(dtype)
     kp = torch.randn((n_pages, page, K, hd), generator=g, device=DEVICE).to(dtype)
     vp = torch.randn((n_pages, page, K, hd), generator=g, device=DEVICE).to(dtype)
     perm = torch.randperm(n_pages, generator=g, device=DEVICE).to(torch.int32)
@@ -196,6 +218,30 @@ def kernel_inputs(dtype, lens, seed: int):
         off += live
     return q, kp, vp, table, torch.tensor(lens, dtype=torch.int32,
                                           device=DEVICE)
+
+
+def verify_bound(q, k_pages, table, lens) -> tuple[float, str]:
+    """Least time for one paged verify call: the bytes it must move (each
+    live K/V row once, q, the live table entries, lens and the output) over
+    the HBM rate, against its flops (QK and PV of each query over the
+    positions it attends, len - Q + qi + 1) over the peak of its dtype.
+    Returns (ms, "bytes" | "operations")."""
+    B, Q, H, hd = q.shape
+    _, page, K, _ = k_pages.shape
+    it = q.element_size()
+    horizon = table.shape[1] * page
+    ln = [min(int(n), horizon) for n in lens.tolist()]
+    n_tok = sum(ln)
+    n_pages = sum(-(-n // page) for n in ln)
+    attended = sum(min(int(n) - Q + qi + 1, horizon)
+                   for n in lens.tolist() for qi in range(Q))
+    nbytes = (2 * n_tok * K * hd * it + 2 * B * Q * H * hd * it
+              + 4 * n_pages + 4 * B)
+    flops = 4 * attended * H * hd
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[str(q.dtype)]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
 
 
 def session_requests(GenRequest, SamplingParams, vocab: int, rng):
@@ -691,6 +737,88 @@ def pull_ms_per_mb(eu, us, prefix) -> tuple:
             2 * ks.numel() * ks.element_size() / 1e6)
 
 
+def common_prefix(a, b) -> int:
+    n = 0
+    for x, y in zip(a, b):
+        if x != y:
+            break
+        n += 1
+    return n
+
+
+def spec_phase(cfg, params, ecfg, turns, base, drafter, label: str,
+               capture_at=None) -> dict:
+    """Speculation at full width: phase 4's requests (`turns`, each a list
+    of (prompt, sampling) served in order, so turn 2 hits turn 1's cache)
+    through an engine with spec_k=SPEC_K and the drafter (cfg, params).
+    Checks every request's exact budget and both kernels' launches against
+    the spec dispatches; prints acceptance, tokens per sequence-step and the
+    agreement with phase 4's non-speculative streams `base`. With
+    `capture_at` = n, the layer-0 inputs and output of the n-th dispatch's
+    verify call are captured. Returns the engine, the launches of
+    (paged_verify, paged_decode), tokens per sequence-step, the output
+    streams and the capture."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.paged_decode import paged_decode
+    from repro_torch.kernels.paged_verify import paged_verify
+    from repro_torch.serving import Engine, GenRequest
+    dcfg, dparams = drafter
+    eng = Engine(cfg, params, dataclasses.replace(ecfg, spec_k=SPEC_K),
+                 seed=0, draft_cfg=dcfg, draft_params=dparams, device=DEVICE)
+    be = eng.backend
+    captured = {}
+    orig_ops = ops.paged_verify
+
+    def capturing(q, k_pages, v_pages, table, seq_lens):
+        out = orig_ops(q, k_pages, v_pages, table, seq_lens)
+        if be.spec_dispatches + 1 == capture_at and not captured:
+            captured.update(q=q.clone(), k=k_pages.clone(), v=v_pages.clone(),
+                            table=table.clone(), lens=seq_lens.clone(),
+                            out=out.clone())
+        return out
+
+    ops.paged_verify = capturing
+    paged_verify.launches = paged_decode.launches = 0   # 4d path starts
+    res = []
+    for turn in turns:
+        res += eng.generate([GenRequest(prompt_tokens=p, sampling=sp)
+                             for p, sp in turn])
+    launches = (paged_verify.launches, paged_decode.launches)  # path ends
+    ops.paged_verify = orig_ops
+    check_results(f"speculation ({label})", res, cfg.vocab)
+    budgets = [sp.max_new_tokens for turn in turns for _, sp in turn]
+    got = [len(r.output_tokens) for r in res]
+    if got != budgets:
+        fail(f"speculation ({label}): output lengths {got} != budgets "
+             f"{budgets}")
+    disp = be.spec_dispatches
+    want = (cfg.n_layers * disp, dcfg.n_layers * (SPEC_K + 1) * disp)
+    if not disp > 0 or launches != want:
+        fail(f"speculation ({label}): paged_verify / paged_decode launched "
+             f"{launches} times over {disp} spec dispatches; expected "
+             f"{want} = ({cfg.n_layers} x dispatches, {dcfg.n_layers} x "
+             f"{SPEC_K + 1} x dispatches)")
+    seq_steps = be.spec_drafted // SPEC_K
+    per_step = eng.core.spec_tokens / seq_steps
+    outs = [r.output_tokens for r in res]
+    same = sum(o == b for o, b in zip(outs, base))
+    agree = sum(common_prefix(o, b) for o, b in zip(outs, base))
+    print(f"speculation ({label}): {len(res)} requests at their exact "
+          f"budgets, {disp} spec dispatches, acceptance "
+          f"{be.spec_accepted}/{be.spec_drafted} = "
+          f"{be.spec_accepted / be.spec_drafted:.3f}, "
+          f"{per_step:.3f} tokens per sequence-step; launches paged_verify "
+          f"{launches[0]} = {cfg.n_layers} x {disp}, paged_decode "
+          f"{launches[1]} = {dcfg.n_layers} x {SPEC_K + 1} x {disp}; "
+          f"against phase 4's bf16 streams: {same}/{len(res)} requests "
+          f"identical, common prefixes {agree}/{sum(map(len, base))} "
+          f"tokens", flush=True)
+    if capture_at is not None and not captured:
+        fail(f"speculation ({label}): no verify step was captured")
+    return dict(eng=eng, launches=launches, per_step=per_step, outs=outs,
+                captured=captured)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -708,6 +836,7 @@ def main() -> int:
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels.page_copy import page_gather, page_scatter
     from repro_torch.kernels.paged_decode import paged_decode
+    from repro_torch.kernels.paged_verify import paged_verify
     from repro_torch.models import init_params, param_count
     from repro_torch.routing import PULL
     from repro_torch.serving import (Engine, EngineConfig, GenRequest,
@@ -744,6 +873,29 @@ def main() -> int:
         print(f"kernel check: paged_decode {str(dtype)[6:]} lens={lens} "
               f"max|err|={err:.3e} (tol {TOL[str(dtype)]}); against fp32 "
               f"per row {row:.3e} (tol {ROW_RTOL[str(dtype)]})", flush=True)
+
+    v_lens = [SPEC_K + 1, 16, 17, 32, 33, 100, 1000, 3001]
+    for dtype in (torch.bfloat16, torch.float32):
+        name = f"paged_verify {str(dtype)[6:]}"
+        args = kernel_inputs(dtype, v_lens, seed=3, Q=SPEC_K + 1)
+        got = paged_verify(*args)
+        torch.cuda.synchronize()
+        err = check_close(name, got, ref.paged_verify_ref(*args))
+        row = check_rows(name, got, *args, plain=ref.paged_verify_ref)
+        # Q=1 is a decode step: the verify kernel against the decode kernel
+        q1, kp, vp, table, ln = kernel_inputs(dtype, v_lens, seed=4, Q=1)
+        one = paged_verify(q1, kp, vp, table, ln)[:, 0]
+        dec = paged_decode(q1[:, 0].contiguous(), kp, vp, table, ln)
+        torch.cuda.synchronize()
+        q1_err = check_close(f"{name} at Q=1 against paged_decode", one, dec)
+        print(f"kernel check: {name} B=8 Q={SPEC_K + 1} H=32 K=8 hd=128 "
+              f"page=16, pool {POOL[1:]}, lens={v_lens}, garbage tables: "
+              f"max|err|={err:.3e} (tol {TOL[str(dtype)]}); against fp32 "
+              f"per row {row:.3e} (tol {ROW_RTOL[str(dtype)]}); at Q=1 "
+              f"against the paged_decode kernel max|err|={q1_err:.3e}"
+              f"{' (bit-identical)' if same_bits(one, dec) else ''}",
+              flush=True)
+        del args, q1, kp, vp
 
     copy_err = 0.0
     for dtype in (torch.bfloat16, torch.float32):
@@ -850,6 +1002,35 @@ def main() -> int:
     host_launches = host_tier_phase(cfg, params)
     router_launches, pull = router_phase(cfg, params)
 
+    # ---- 4d. speculation at full width on phase 4's requests: the target
+    # as its own drafter (one params dict, its own drafter pool), then a
+    # random 2-layer drafter of the target's widths
+    turns = [[(r.prompt_tokens, r.sampling) for r in t]
+             for t in (turn1, turn2)]
+    base = [o.output_tokens for o in res1 + res2]
+    spec_a = spec_phase(cfg, params, ecfg, turns, base, (cfg, params),
+                        "drafter = target", capture_at=5)
+    if not spec_a["per_step"] > 1:
+        fail(f"speculation (drafter = target): {spec_a['per_step']:.3f} "
+             f"tokens per sequence-step, not more than 1")
+    dcfg = dataclasses.replace(cfg, n_layers=2)
+    dparams = init_params(dcfg, torch.bfloat16, DEVICE,
+                          torch.Generator(device=DEVICE).manual_seed(1))
+    spec_b = spec_phase(cfg, params, ecfg, turns, base, (dcfg, dparams),
+                        "2-layer drafter")
+    vc = spec_a["captured"]
+    v_args = (vc["q"], vc["k"], vc["v"], vc["table"], vc["lens"])
+    v_err = check_close("paged_verify on a captured verify step", vc["out"],
+                        ref.paged_verify_ref(*v_args))
+    v_row = check_rows("paged_verify on a captured verify step", vc["out"],
+                       *v_args, plain=ref.paged_verify_ref)
+    same_ab = sum(a == b for a, b in zip(spec_a["outs"], spec_b["outs"]))
+    print(f"speculation: the two drafters' streams are identical on "
+          f"{same_ab}/{len(base)} requests; captured verify step "
+          f"(B={vc['q'].shape[0]}, Q={vc['q'].shape[1]}, "
+          f"lens={vc['lens'].tolist()}) max|err|={v_err:.3e}, against fp32 "
+          f"per row {v_row:.3e}", flush=True)
+
     # ---- 5. the engine's tokens against its plain CPU path (small, fp32)
     small = get_config("llama31-8b-reduced")
     cpu_params = init_params(small, torch.float32, "cpu",
@@ -860,20 +1041,47 @@ def main() -> int:
              (9, dict(max_new_tokens=7, temperature=1.1)),
              (31, dict(max_new_tokens=4))]
     streams = []
-    for dev, p in ((DEVICE, gpu_params), ("cpu", cpu_params)):
+    small_ecfg = EngineConfig(page_size=8, n_pages=64, max_batch=4,
+                              max_seq_len=256, prefill_pad=16)
+
+    def small_reqs():
         r = np.random.default_rng(3)
-        reqs = [GenRequest(prompt_tokens=tuple(
+        return [GenRequest(prompt_tokens=tuple(
             r.integers(0, small.vocab, size=n).tolist()),
             sampling=SamplingParams(**kw)) for n, kw in specs]
-        e = Engine(small, p, EngineConfig(page_size=8, n_pages=64,
-                                          max_batch=4, max_seq_len=256,
-                                          prefill_pad=16), device=dev)
-        streams.append([o.output_tokens for o in e.generate(reqs)])
+
+    for dev, p in ((DEVICE, gpu_params), ("cpu", cpu_params)):
+        e = Engine(small, p, small_ecfg, device=dev)
+        streams.append([o.output_tokens for o in e.generate(small_reqs())])
     if streams[0] != streams[1]:
         fail(f"small fp32 engine: card tokens {streams[0]} != plain CPU "
              f"path {streams[1]}")
     print(f"reference: small fp32 engine tokens on the card equal the plain "
           f"CPU path ({sum(map(len, streams[0]))} tokens)", flush=True)
+    # speculation on the card against the plain CPU path's NON-speculative
+    # tokens: the target as drafter, and tests/test_speculative.py's small
+    # random drafter
+    small_d = dataclasses.replace(small, name="drafter", n_layers=2,
+                                  d_model=32, n_heads=2, n_kv_heads=1,
+                                  d_ff=64, head_dim=16)
+    small_dp = init_params(small_d, torch.float32, DEVICE,
+                           torch.Generator(device=DEVICE).manual_seed(99))
+    spec_small = []
+    for label, d in (("drafter = target", (small, gpu_params)),
+                     ("small random drafter", (small_d, small_dp))):
+        e = Engine(small, gpu_params,
+                   dataclasses.replace(small_ecfg, spec_k=SPEC_K),
+                   draft_cfg=d[0], draft_params=d[1], device=DEVICE)
+        out = [o.output_tokens for o in e.generate(small_reqs())]
+        if out != streams[1]:
+            fail(f"small fp32 engine, speculation ({label}): card tokens "
+                 f"{out} != plain CPU path {streams[1]}")
+        b = e.backend
+        spec_small.append(f"{label}: acceptance {b.spec_accepted}/"
+                          f"{b.spec_drafted}")
+    print(f"reference: small fp32 speculative engine (spec_k={SPEC_K}) on "
+          f"the card gives the plain CPU path's non-speculative tokens; "
+          f"{'; '.join(spec_small)}", flush=True)
     host_runs = []
     for dev, p in ((DEVICE, gpu_params), ("cpu", cpu_params)):
         e = Engine(small, p, EngineConfig(
@@ -917,6 +1125,11 @@ def main() -> int:
     q, kp, vp, table, ln = (c["q"], c["k"], c["v"], c["table"], c["lens"])
     k_ms = cuda_ms(lambda: paged_decode(q, kp, vp, table, ln))
     p_ms = cuda_ms(lambda: ref.paged_decode_ref(q, kp, vp, table, ln))
+    # the same two as device time, which the kernels line reports as every
+    # row does; the events above stay in the printed line only
+    k_dev, _ = device_ms(lambda: paged_decode(q, kp, vp, table, ln))
+    p_dev, _ = device_ms(lambda: ref.paged_decode_ref(q, kp, vp, table, ln),
+                         iters=20)
     b_ms, b_by = paged_bound(q, kp, table, ln)
     print(f"[{card}] engine {cfg.name} bf16 page=16 max_batch=8: prefill "
           f"{pre_tok_s:.1f} tok/s ({prefilled} uncached tokens in "
@@ -924,16 +1137,51 @@ def main() -> int:
           f"decode step {step_ms:.2f} ms", flush=True)
     print(f"[{card}] paged_decode at the captured step (B={q.shape[0]}, "
           f"lens={ln.tolist()}): kernel {k_ms * 1e3:.1f} us, plain "
-          f"{p_ms * 1e3:.1f} us, bound {b_ms * 1e3:.2f} us ({b_by}), "
+          f"{p_ms * 1e3:.1f} us (CUDA events over back-to-back calls; "
+          f"device time: kernel {k_dev * 1e3:.1f} us, plain "
+          f"{p_dev * 1e3:.1f} us), bound {b_ms * 1e3:.2f} us ({b_by}), "
           f"{launches // len(decode_s)} launches per decode step", flush=True)
     big = kernel_inputs(torch.bfloat16, lens, seed=2)
     kb_ms = cuda_ms(lambda: paged_decode(*big))
     pb_ms = cuda_ms(lambda: ref.paged_decode_ref(*big), iters=10)
+    kb_dev, _ = device_ms(lambda: paged_decode(*big))
+    pb_dev, _ = device_ms(lambda: ref.paged_decode_ref(*big), iters=10)
     bb_ms, _ = paged_bound(big[0], big[1], big[3], big[4])
     print(f"[{card}] paged_decode bf16 lens={lens}: kernel "
-          f"{kb_ms * 1e3:.1f} us, plain {pb_ms * 1e3:.1f} us, bound "
-          f"{bb_ms * 1e3:.2f} us", flush=True)
-    decode_profile(eng, card, GenRequest, SamplingParams, rng)
+          f"{kb_ms * 1e3:.1f} us, plain {pb_ms * 1e3:.1f} us (events; "
+          f"device time: kernel {kb_dev * 1e3:.1f} us, plain "
+          f"{pb_dev * 1e3:.1f} us), bound {bb_ms * 1e3:.2f} us", flush=True)
+    # paged_verify at the captured verify step and at the phase 3 lens
+    vk_ms, v_how = device_ms(lambda: paged_verify(*v_args))
+    vk_ev = cuda_ms(lambda: paged_verify(*v_args))
+    vp_ms, _ = device_ms(lambda: ref.paged_verify_ref(*v_args), iters=20)
+    vb_ms, vb_by = verify_bound(v_args[0], v_args[1], v_args[3], v_args[4])
+    print(f"[{card}] paged_verify at the captured verify step "
+          f"(B={v_args[0].shape[0]}, Q={v_args[0].shape[1]}, "
+          f"lens={v_args[4].tolist()}): kernel {vk_ms * 1e3:.1f} us "
+          f"({v_how}; CUDA events over back-to-back wrapper calls "
+          f"{vk_ev * 1e3:.1f} us), plain {vp_ms * 1e3:.1f} us, bound "
+          f"{vb_ms * 1e3:.2f} us ({vb_by}), {cfg.n_layers} launches per "
+          f"spec dispatch", flush=True)
+    big_v = kernel_inputs(torch.bfloat16, v_lens, seed=5, Q=SPEC_K + 1)
+    vkb_ms, vkb_how = device_ms(lambda: paged_verify(*big_v))
+    vpb_ms, _ = device_ms(lambda: ref.paged_verify_ref(*big_v), iters=10)
+    vbb_ms, vbb_by = verify_bound(big_v[0], big_v[1], big_v[3], big_v[4])
+    print(f"[{card}] paged_verify bf16 Q={SPEC_K + 1} lens={v_lens}: kernel "
+          f"{vkb_ms * 1e3:.1f} us ({vkb_how}), plain {vpb_ms * 1e3:.1f} us, "
+          f"bound {vbb_ms * 1e3:.2f} us ({vbb_by})", flush=True)
+    del big_v
+    # the speculative step against the plain one, batch 8, one after the
+    # other on this card
+    step_t = [(label, *decode_profile(e, card, label, GenRequest,
+                                      SamplingParams, rng))
+              for label, e in (("plain decode", eng),
+                               ("spec, drafter = target", spec_a["eng"]),
+                               ("spec, 2-layer drafter", spec_b["eng"]))]
+    print(f"[{card}] decode step at batch 8 (200-token prompts, spec_k="
+          f"{SPEC_K}): " + "; ".join(
+              f"{label} {ms:.2f} ms/step, {tps:.1f} tok/s"
+              for label, ms, tps in step_t), flush=True)
 
     # the page copies: kernel, plain, library and bound at N = 16 and 100
     # pages of the full-width bf16 pools
@@ -971,9 +1219,15 @@ def main() -> int:
         "name": "paged_decode", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_decode.cu",
         "replaces": "src/repro/kernels/paged_decode.py:122",
-        "launches": launches, "max_abs_err": main_err, "ms": k_ms,
-        "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": None}]
+        "launches": launches, "max_abs_err": main_err, "ms": k_dev,
+        "plain_ms": p_dev, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None}, {
+        "name": "paged_verify", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/paged_verify.cu",
+        "replaces": "src/repro/kernels/paged_verify.py:130",
+        "launches": spec_a["launches"][0] + spec_b["launches"][0],
+        "max_abs_err": v_err, "ms": vk_ms, "plain_ms": vp_ms,
+        "bound_ms": vb_ms, "bound_by": vb_by, "library_ms": None}]
     for name, line in (("gather", 52), ("scatter", 86)):
         r = copy_t[16][name]
         k, pl, lib = r["kernel"][0], r["plain"][0], r["library"][0]
@@ -993,20 +1247,25 @@ def main() -> int:
     return 0
 
 
-def decode_profile(eng, card, GenRequest, SamplingParams, rng) -> None:
+def decode_profile(eng, card, label, GenRequest, SamplingParams,
+                   rng) -> tuple:
     """Where a steady decode step's time goes, at a full batch (8
-    sequences): the wall time of four steps, then torch.profiler (device
-    activity only) over the next four. Prints the device's busy time per
-    step against the unprofiled wall and the top kernels' time per step."""
+    sequences of 200-token prompts): the wall time and the tokens emitted
+    in four steps, then torch.profiler (device activity only) over the
+    next four; the requests are cancelled after. Prints the device's busy
+    time per step against the unprofiled wall and the top kernels' time
+    per step. Returns (ms per step, tokens per second)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     vocab = eng.cfg.vocab
-    for _ in range(8):
-        eng.submit(GenRequest(prompt_tokens=tuple(
-            rng.integers(0, vocab, size=200).tolist()),
-            sampling=SamplingParams(max_new_tokens=16)))
+    reqs = [GenRequest(prompt_tokens=tuple(
+        rng.integers(0, vocab, size=200).tolist()),
+        sampling=SamplingParams(max_new_tokens=64)) for _ in range(8)]
+    for r in reqs:
+        eng.submit(r)
     eng.step()                              # admit + prefill
     eng.step()                              # first decode: uploads state
+    n0 = sum(len(s.out) for s in eng.core.running)
     steps = 4
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1014,21 +1273,28 @@ def decode_profile(eng, card, GenRequest, SamplingParams, rng) -> None:
         eng.step()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / steps
+    n = sum(len(s.out) for s in eng.core.running) - n0
+    if len(eng.core.running) != 8:
+        fail(f"{label} profile: {len(eng.core.running)} sequences running, "
+             f"not 8")
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
             eng.step()
         torch.cuda.synchronize()
-    eng.run_until_idle()
+    for r in reqs:
+        eng.cancel(r.rid)
     events = device_events(prof)
     busy = sum(dev_us(e) for e in events) / 1e6 / steps      # s per step
-    print(f"[{card}] decode profile, batch 8: wall {1e3 * wall:.2f} ms/step "
-          f"(unprofiled), device busy "
+    print(f"[{card}] {label} profile, batch 8: wall {1e3 * wall:.2f} ms/step "
+          f"(unprofiled), {n / steps / 8:.2f} tokens per sequence-step, "
+          f"{n / wall / steps:.1f} tok/s; device busy "
           + (f"{1e3 * busy:.2f} ms/step = {100 * busy / wall:.1f}% of the "
              f"wall" if busy else
              "not measured (the profiler saw no device time)"), flush=True)
     for e in sorted(events, key=dev_us, reverse=True)[:8]:
         print(f"[{card}]   {dev_us(e) / 1e3 / steps:8.3f} ms/step "
               f"{e.count // steps:5d}/step  {e.key[:80]}", flush=True)
+    return 1e3 * wall, n / wall / steps
 
 
 def _to(tree: dict, device: str) -> dict:

@@ -14,6 +14,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.page_copy import page_gather as _gather_cuda
 from repro_torch.kernels.page_copy import page_scatter as _scatter_cuda
 from repro_torch.kernels.paged_decode import paged_decode as _paged_cuda
+from repro_torch.kernels.paged_verify import paged_verify as _verify_cuda
 
 
 def paged_decode(q: torch.Tensor, k_pages, v_pages, block_table,
@@ -24,6 +25,17 @@ def paged_decode(q: torch.Tensor, k_pages, v_pages, block_table,
         return ref.paged_decode_ref(q, k_pages, v_pages, block_table,
                                     seq_lens)
     return _paged_cuda(q, k_pages, v_pages, block_table, seq_lens)
+
+
+def paged_verify(q: torch.Tensor, k_pages, v_pages, block_table,
+                 seq_lens) -> torch.Tensor:
+    """q: (B,Q,H,hd); pools (P,page,K,hd); block_table (B,NPG) int32;
+    seq_lens (B,) int32 TOTAL tokens including the Q candidates, >= Q.
+    Returns (B,Q,H,hd) in q's dtype."""
+    if q.device.type == "cpu":
+        return ref.paged_verify_ref(q, k_pages, v_pages, block_table,
+                                    seq_lens)
+    return _verify_cuda(q, k_pages, v_pages, block_table, seq_lens)
 
 
 def page_gather(k_pages: torch.Tensor, v_pages: torch.Tensor,

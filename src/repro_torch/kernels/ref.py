@@ -37,6 +37,41 @@ def paged_decode_ref(q, k_pages, v_pages, block_table, seq_lens) -> torch.Tensor
     return out.reshape(B, H, hd)
 
 
+def paged_verify_ref(q, k_pages, v_pages, block_table, seq_lens) -> torch.Tensor:
+    """Multi-query verify attention over a paged KV cache (speculative
+    decoding's target half).
+    q: (B,Q,H,hd), the Q candidate positions of each sequence, whose K/V
+    the caller has already written into the pool; seq_lens: (B,) TOTAL
+    valid token counts INCLUDING the Q candidates (>= Q). Query qi attends
+    positions < seq_len - Q + qi + 1 (itself and everything before it, none
+    of the later candidates). Same garbage-past-ragged-edge block-table
+    contract as `paged_decode_ref`, whose math it reduces to at Q=1; fp32
+    softmax, probabilities cast to v's dtype before PV
+    (`src/repro/kernels/ref.py:60-95`)."""
+    B, Q, H, hd = q.shape
+    _, page, K, _ = k_pages.shape
+    npages = block_table.shape[1]
+    G = H // K
+    T = npages * page
+    lens = seq_lens.long()[:, None]                               # (B,1)
+    live = torch.arange(npages, device=q.device)[None, :] * page < lens
+    bt = torch.where(live, block_table.long(), 0)
+    k = k_pages[bt].reshape(B, T, K, hd)
+    v = v_pages[bt].reshape(B, T, K, hd)
+    # fold the query axis into the grouped-query axis: head h = k*G + g,
+    # row g*Q + qi of KV head k
+    qg = q.transpose(1, 2).reshape(B, K, G * Q, hd)
+    logits = torch.einsum("bkrh,btkh->bkrt", qg, k).float() * hd ** -0.5
+    qi = torch.arange(G * Q, device=q.device) % Q
+    limit = lens - Q + qi[None, :] + 1                            # (B,G*Q)
+    valid = torch.arange(T, device=q.device)[None, None, :] < limit[..., None]
+    logits = torch.where(valid[:, None], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bkrt,btkh->bkrh", probs, v)
+    return out.reshape(B, K, G, Q, hd).permute(0, 3, 1, 2, 4).reshape(
+        B, Q, H, hd)
+
+
 def page_gather_ref(pool, ids) -> torch.Tensor:
     """pool: (L, P, page, K, hd); ids: (N,) int32 page slots. Returns the
     dense page stack (N, L, page, K, hd), a new tensor."""

@@ -9,10 +9,15 @@ module turns finished sequences into `GenResult`s.
 ``pending_count() == 0`` is exactly the availability signal SkyLB's SP-P
 probes (§3.3).
 
+Speculative decoding (`EngineConfig.spec_k > 0`) takes a drafter model,
+`Engine(..., draft_cfg=, draft_params=)`, whose params live on the engine's
+device; its tokens equal the non-speculative engine's whatever the drafter
+proposes.
+
 The device is explicit: `device=None` means "cuda", and without CUDA the
 engine raises unless the caller asked for `device="cpu"`. What the port
-does not carry yet is refused loudly, never approximated: speculative
-decoding (`spec_k > 0`) and MoE models raise `NotImplementedError`.
+does not carry yet is refused loudly, never approximated: MoE models raise
+`NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -46,7 +51,12 @@ class EngineConfig:
     bucket_shapes: bool = True    # pow2 shape buckets; False = exact shapes
     packed_prefill: bool = True   # admissions packed into one call;
                                   # False = one prefill_step per request
-    spec_k: int = 0               # speculative drafts: not ported yet (0 only)
+    spec_k: int = 0               # speculative drafts per decode iteration;
+                                  # 0 = off. >0 requires Engine(draft_cfg=,
+                                  # draft_params=): the drafter model
+    spec_synth_rate: Optional[float] = None  # benchmark knob: fixed
+                                  # synthetic acceptance rate (emitted
+                                  # tokens then NOT baseline-exact)
     discipline: str = "fcfs"      # queue discipline: fcfs | vtc | wvtc
     cache_discount: float = 0.25  # VTC charge rate for cache-hit tokens
     shed_deadline: bool = False   # deadline-aware admission shedding
@@ -63,26 +73,33 @@ def resolve_device(device: Optional[str]) -> torch.device:
     return dev
 
 
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family not in ("dense", "vlm"):
+        later = ("the MoE FFN is a later slice of the port"
+                 if cfg.family == "moe" else
+                 "ssm/hybrid replicas are modeled by the simulator")
+        raise NotImplementedError(
+            f"the paged engine serves dense and VLM transformers; got "
+            f"{cfg.family} ({later})")
+
+
 class Engine:
     def __init__(self, model_cfg: ModelConfig, params: Any,
                  ecfg: EngineConfig = EngineConfig(), seed: int = 0,
-                 device: Optional[str] = None):
-        if model_cfg.family not in ("dense", "vlm"):
-            later = ("the MoE FFN is a later slice of the port"
-                     if model_cfg.family == "moe" else
-                     "ssm/hybrid replicas are modeled by the simulator")
-            raise NotImplementedError(
-                f"the paged engine serves dense and VLM transformers; got "
-                f"{model_cfg.family} ({later})")
-        if ecfg.spec_k > 0:
-            raise NotImplementedError(
-                "speculative decoding (spec_k > 0) is a later slice of the "
-                "port, with the paged_verify kernel")
+                 draft_cfg: Optional[ModelConfig] = None,
+                 draft_params: Any = None, device: Optional[str] = None):
+        _check_family(model_cfg)
+        if draft_cfg is not None:
+            _check_family(draft_cfg)
         self.device = resolve_device(device)
-        on = {t.device.type for t in leaves(params)}
-        if on != {self.device.type}:
-            raise ValueError(f"params live on {sorted(on)}, the engine on "
-                             f"{self.device}; make them where they will run")
+        for what, tree in (("params", params), ("draft_params", draft_params)):
+            if tree is None:
+                continue
+            on = {t.device.type for t in leaves(tree)}
+            if on != {self.device.type}:
+                raise ValueError(f"{what} live on {sorted(on)}, the engine "
+                                 f"on {self.device}; make them where they "
+                                 f"will run")
         self.cfg = model_cfg
         self.ecfg = ecfg
         self.params = params
@@ -91,7 +108,10 @@ class Engine:
             device=self.device, prefill_pad=ecfg.prefill_pad, seed=seed,
             bucket_shapes=ecfg.bucket_shapes,
             packed_prefill=ecfg.packed_prefill,
-            overlap_loads=ecfg.overlap_loads)
+            overlap_loads=ecfg.overlap_loads,
+            spec_k=ecfg.spec_k, draft_cfg=draft_cfg,
+            draft_params=draft_params,
+            spec_synth_rate=ecfg.spec_synth_rate)
         self.core = ReplicaCore(ReplicaCoreConfig(
             page_size=ecfg.page_size, n_pages=ecfg.n_pages,
             max_batch=ecfg.max_batch, max_seq_len=ecfg.max_seq_len,
@@ -203,7 +223,8 @@ class Engine:
 
     def _sweep_deadlines(self, now: float) -> int:
         expired = [s.req.rid for s in
-                   (list(self.core.pending) + list(self.core.running))
+                   (list(self.core.pending) + list(self.core.running)
+                    + list(self.core.loading))
                    if s.req.deadline_s is not None
                    and s.req.arrival_s is not None
                    and now - s.req.arrival_s > s.req.deadline_s]

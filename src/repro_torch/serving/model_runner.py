@@ -29,6 +29,13 @@ backend threads them through exactly as the JAX backend does.
 
   `prefill_step`  the one-request-at-a-time path (`packed_prefill=False`).
 
+  `spec_decode_step`  draft-k/verify-1 speculation over the same bucketed
+      state: k+1 drafter single-token forwards (the last one only writes
+      its KV), then ONE multi-query target forward over the k+1 candidate
+      positions (`kops.paged_verify`), exact-match acceptance against the
+      target's own seed+position draws, and the in-place advance of
+      `lens`/`toks` past the accepted run.
+
 Prefill attention is the plain masked `_sdpa`, as the JAX package computes
 it outside any Pallas kernel.
 """
@@ -44,7 +51,8 @@ from repro_torch.models import attention as attn
 from repro_torch.models.layers import (apply_mlp, embed_tokens, lm_logits,
                                       rms_norm)
 from repro_torch.models.transformer import layer
-from repro_torch.serving.sampling import sample_rows_impl
+from repro_torch.serving.sampling import (fold_in, fold_key,
+                                          sample_rows_impl, uniform)
 
 
 def init_kv_pool(cfg: ModelConfig, n_pages: int, page_size: int,
@@ -183,10 +191,12 @@ def prefill_pack_step(params: Any, tokens: torch.Tensor, seg_ids: torch.Tensor,
 # ------------------------------------------------------------------ decode
 
 def _token_fwd(params, toks, positions, atn_lens, bt, page_ids, offsets,
-               k_pages, v_pages, *, cfg: ModelConfig):
+               k_pages, v_pages, *, cfg: ModelConfig, head: bool = True):
     """One single-token forward for a batch: embed + per-layer KV write at
     (page_ids, offsets) + ragged paged attention over `atn_lens` tokens.
-    Returns (logits (B, V), k_pages, v_pages)."""
+    Returns (logits (B, V), k_pages, v_pages); with `head=False` only the
+    KV writes matter and the final norm and vocab projection are skipped
+    (logits None), as XLA drops them when the caller ignores the logits."""
     h = embed_tokens(params, toks[:, None], cfg)    # compute in param dtype
     pos2 = positions[:, None]
     for li in range(cfg.n_layers):
@@ -200,6 +210,8 @@ def _token_fwd(params, toks, positions, atn_lens, bt, page_ids, offsets,
                               bt, atn_lens)
         h = h + _out_proj(o, lp["attn"]["wo"])[:, None]
         h = h + _ffn(lp, rms_norm(h, lp["ln2"], cfg.norm_eps), cfg)
+    if not head:
+        return None, k_pages, v_pages
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     return lm_logits(params, h, cfg)[:, 0], k_pages, v_pages
 
@@ -247,3 +259,142 @@ def decode_step(params: Any, state: dict, k_pages: torch.Tensor,
     toks.copy_(torch.where(active, new_toks, toks))
     lens.copy_(new_lens)
     return new_toks, state, k_pages, v_pages
+
+
+# ------------------------------------------------------- speculative decode
+
+def _verify_fwd(params, qtoks, qpos, bt, dest_page, dest_slot, total,
+                k_pages, v_pages, *, cfg: ModelConfig):
+    """Multi-query target forward over the Q = k_spec+1 candidate
+    positions: embed + per-layer KV write of ALL candidates at
+    (dest_page, dest_slot) + ragged multi-query paged attention
+    (`kops.paged_verify`) over `total` tokens per row. Returns
+    (logits (B, Q, V), k_pages, v_pages)."""
+    h = embed_tokens(params, qtoks, cfg)                       # (B, Q, d)
+    for li in range(cfg.n_layers):
+        lp = layer(params["layers"], li)
+        x = rms_norm(h, lp["ln1"], cfg.norm_eps)
+        q = attn._project_q(lp["attn"], x, cfg, qpos, rope=True)
+        k_new, v_new = attn._project_kv(lp["attn"], x, cfg, qpos, rope=True)
+        k_pages[li, dest_page, dest_slot] = k_new.to(k_pages.dtype)
+        v_pages[li, dest_page, dest_slot] = v_new.to(v_pages.dtype)
+        o = kops.paged_verify(q.contiguous(), k_pages[li], v_pages[li], bt,
+                              total)                           # (B,Q,H,hd)
+        h = h + _out_proj(o, lp["attn"]["wo"])
+        h = h + _ffn(lp, rms_norm(h, lp["ln2"], cfg.norm_eps), cfg)
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    return lm_logits(params, h, cfg), k_pages, v_pages
+
+
+@torch.no_grad()
+def spec_decode_step(params: Any, dparams: Any, state: dict,
+                     k_pages: torch.Tensor, v_pages: torch.Tensor,
+                     dk_pages: torch.Tensor, dv_pages: torch.Tensor,
+                     base_key: torch.Tensor, scratch: int, *,
+                     cfg: ModelConfig, dcfg: ModelConfig, page_size: int,
+                     nb: int, npgb: int, k_spec: int, synth_rate=None):
+    """Fused draft-k/verify-1 speculative decode over `decode_step`'s
+    bucketed batch-state contract.
+
+    The drafter shares the target's block tables, page ids and lens (its
+    own pools `dk_pages`/`dv_pages` have the target pool's page geometry),
+    so the scheduler manages one set of pages. Acceptance is exact-match:
+    the target samples T_j at every verified position with the seed+
+    position keys sequential decode would use, and draft d_j is accepted
+    iff it equals T_j and every earlier draft was accepted; the step emits
+    n_acc+1 >= 1 TARGET samples, so the stream equals the non-speculative
+    engine's whatever the drafter proposes. Rejected positions' KV is
+    rolled back logically: `lens` advances only past accepted tokens, so
+    the stale slots lie past every row's ragged edge until the next step
+    overwrites them. Writes that would land past the bucket's
+    `npgb * page_size` horizon go to the `scratch` page.
+
+    With `synth_rate` (a float in [0, 1]) the accept/reject decision of
+    each draft position is a deterministic coin keyed on the same
+    seed+position key, tagged by fold_in 7: the benchmark knob of a fixed
+    acceptance rate; emitted tokens are then NOT baseline-exact.
+
+    `lens`/`toks` of the state advance in place. Returns (T (nb, k_spec+1)
+    int32 target samples, n_acc (nb,) accepted draft counts, state,
+    k_pages, v_pages, dk_pages, dv_pages).
+    """
+    Q = k_spec + 1
+    bt = state["bt"][:nb, :npgb].contiguous()
+    lens = state["lens"][:nb]
+    toks = state["toks"][:nb]
+    temps = state["temps"][:nb]
+    top_ks = state["top_ks"][:nb]
+    seeds = state["seeds"][:nb]
+    dev = lens.device
+    cap = npgb * page_size
+
+    def dests(positions):
+        # (nb, n) positions -> (page ids, slots). A position past the bucket
+        # horizon must not clamp onto a REAL page (the wrapped slot would
+        # corrupt committed KV): it goes to the scratch page, whose
+        # contents are never read back
+        col = (positions // page_size).clamp_max(npgb - 1).long()
+        pids = torch.where(positions < cap, bt.gather(1, col).long(), scratch)
+        return pids, (positions % page_size).long()
+
+    # ---- draft phase: k_spec proposal forwards + 1 write-only forward (the
+    # last candidate's KV must be resident for the all-accepted case: the
+    # next step's drafter attends position lens + k_spec)
+    x = toks
+    drafts = []
+    for i in range(Q):
+        p = lens + i
+        pids, offs = dests(p[:, None])
+        d_logits, dk_pages, dv_pages = _token_fwd(
+            dparams, x, p, p + 1, bt, pids[:, 0], offs[:, 0], dk_pages,
+            dv_pages, cfg=dcfg, head=i < k_spec)
+        if i < k_spec:
+            # drafts draw through the SAME seed+position keys as the
+            # target's verify draws: an identical drafter reproduces the
+            # target's samples exactly (acceptance 1.0 by construction)
+            x = sample_rows_impl(d_logits, base_key, seeds, p + 1, temps,
+                                 top_ks)
+            drafts.append(x)
+
+    # ---- verify phase: ONE multi-query target forward
+    D = (torch.stack(drafts, dim=1) if k_spec
+         else toks.new_zeros((nb, 0)))                         # (nb, k)
+    qtoks = torch.cat([toks[:, None], D], dim=1)               # (nb, Q)
+    qpos = lens[:, None] + torch.arange(Q, dtype=lens.dtype, device=dev)
+    dp, dsl = dests(qpos)
+    # the verify kernel's lens count ALL Q candidates; inactive padding rows
+    # (lens=0, scratch block table) pass the minimum Q
+    total = torch.where(lens > 0, lens + Q, Q).to(torch.int32)
+    logits, k_pages, v_pages = _verify_fwd(
+        params, qtoks, qpos, bt, dp, dsl, total, k_pages, v_pages,
+        cfg=cfg)                                               # (nb, Q, V)
+
+    # target samples at every verified position with the sequential keys,
+    # all Q columns in one call (each row's draw depends only on its own
+    # seed and position)
+    T = sample_rows_impl(
+        logits.reshape(nb * Q, -1), base_key,
+        seeds.repeat_interleave(Q), (qpos + 1).reshape(-1),
+        temps.repeat_interleave(Q), top_ks.repeat_interleave(Q)
+    ).reshape(nb, Q)
+
+    # exact-match acceptance: the longest leading run of drafts equal to
+    # the target's own draws
+    if k_spec:
+        if synth_rate is None:
+            m = (D == T[:, :k_spec]).to(torch.int32)
+        else:
+            keys = fold_in(fold_key(base_key, seeds[:, None], qpos[:, 1:]),
+                           torch.tensor(7, device=dev))        # (nb, k, 2)
+            u = uniform(keys.reshape(-1, 2), 1).reshape(nb, k_spec)
+            m = (u < torch.tensor(synth_rate, dtype=torch.float32,
+                                  device=dev)).to(torch.int32)
+        n_acc = torch.cumprod(m, dim=1).sum(dim=1).to(torch.int32)
+    else:
+        n_acc = torch.zeros((nb,), dtype=torch.int32, device=dev)
+
+    new_toks = T.gather(1, n_acc.long()[:, None])[:, 0]
+    active = lens > 0
+    toks.copy_(torch.where(active, new_toks, toks))
+    lens.copy_(torch.where(active, lens + n_acc + 1, lens))
+    return T, n_acc, state, k_pages, v_pages, dk_pages, dv_pages

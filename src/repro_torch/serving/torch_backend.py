@@ -35,11 +35,18 @@ preemption, chunking) stays in `repro_torch.replica.core.ReplicaCore`.
            into CPU stacks (the wire format), `import_pages` scatters them
            into local pages.
 
+  spec     Draft-k/verify-1 speculation (`spec_k > 0`): `decode_many` runs
+           one `mr.spec_decode_step` over the same persistent bucketed
+           state and fetches (T, n_acc) in one transfer, the step's one
+           host sync. The drafter keeps its own pools with the target's
+           page geometry and KV dtype (the same page ids index both), and
+           every prefill is mirrored through it. The host tier and
+           `import_pages` move the target pools only, as in the JAX
+           backend: a reloaded prefix lowers acceptance, never
+           correctness.
+
 Sampling is per sequence and keyed on (engine seed, request seed, token
 position), so bucketing can never change a sampled token.
-
-Not in this backend yet (a later slice of the port): speculative
-`decode_many`.
 """
 from __future__ import annotations
 
@@ -67,7 +74,10 @@ class TorchPagedBackend:
     def __init__(self, model_cfg: ModelConfig, params: Any, *,
                  n_pages: int, page_size: int, device, prefill_pad: int = 64,
                  seed: int = 0, bucket_shapes: bool = True,
-                 packed_prefill: bool = True, overlap_loads: bool = True):
+                 packed_prefill: bool = True, overlap_loads: bool = True,
+                 spec_k: int = 0, draft_cfg: Optional[ModelConfig] = None,
+                 draft_params: Any = None,
+                 spec_synth_rate: Optional[float] = None):
         self.cfg = model_cfg
         self.params = params
         self.device = torch.device(device)
@@ -79,6 +89,24 @@ class TorchPagedBackend:
         kv_dtype = next(leaves(params)).dtype       # the KV pool's dtype
         self.k_pages, self.v_pages = mr.init_kv_pool(
             model_cfg, n_pages, page_size, kv_dtype, self.device)
+        # speculative decoding: the drafter keeps its OWN pools with the
+        # target pool's page geometry (same page ids index both), so the
+        # scheduler manages one set of pages for two models
+        self.spec_k = spec_k
+        self.draft_cfg = draft_cfg
+        self.draft_params = draft_params
+        self.spec_synth_rate = spec_synth_rate
+        if spec_k > 0:
+            if draft_cfg is None or draft_params is None:
+                raise ValueError("spec_k > 0 requires draft_cfg + "
+                                 "draft_params (the drafter model)")
+            self.dk_pages, self.dv_pages = mr.init_kv_pool(
+                draft_cfg, n_pages, page_size, kv_dtype, self.device)
+        else:
+            self.dk_pages = self.dv_pages = None
+        self.spec_dispatches = 0      # decode_many calls
+        self.spec_drafted = 0         # draft positions proposed
+        self.spec_accepted = 0        # draft positions accepted
         self._base_key = prng_key(seed, self.device)
         self._scratch: Optional[int] = None
         # distinct (nb, npgb) decode buckets run so far: bounded by the
@@ -281,10 +309,18 @@ class TorchPagedBackend:
             np.int64)
         past = seq.pages[:start // ps]
         np_past = np.asarray(past if past else [self._scratch], np.int64)
+        args = (self._dev(toks), self._dev(np_new))
+        past_dev = self._dev(np_past)
         logits, self.k_pages, self.v_pages = mr.prefill_step(
-            self.params, self._dev(toks), self._dev(np_new),
-            self.k_pages, self.v_pages, self._dev(np_past),
+            self.params, *args, self.k_pages, self.v_pages, past_dev,
             start, len(suffix), cfg=self.cfg, page_size=ps)
+        if self.spec_k > 0:
+            # mirror the chunk through the drafter so its cache tracks the
+            # target's committed positions (same pages, its own pools)
+            _, self.dk_pages, self.dv_pages = mr.prefill_step(
+                self.draft_params, *args, self.dk_pages, self.dv_pages,
+                past_dev, start, len(suffix), cfg=self.draft_cfg,
+                page_size=ps)
         if not sample:
             return None
         tok = self._sample_pref(logits, seq, end)
@@ -342,13 +378,20 @@ class TorchPagedBackend:
             topks[j] = sp.top_k
             seeds[j] = sp.seed
             spos[j] = end
+        rows = [self._dev(a) for a in (toks, segs, poss, dpage, dslot)]
+        segs_dev = [self._dev(a) for a in (past, past_start, past_len,
+                                           last_idx, temps, topks, seeds,
+                                           spos)]
         toks_dev, self.k_pages, self.v_pages = mr.prefill_pack_step(
-            self.params, self._dev(toks), self._dev(segs), self._dev(poss),
-            self._dev(dpage), self._dev(dslot), self.k_pages, self.v_pages,
-            self._dev(past), self._dev(past_start), self._dev(past_len),
-            self._dev(last_idx), self._dev(temps), self._dev(topks),
-            self._dev(seeds), self._dev(spos), self._base_key,
-            cfg=self.cfg, page_size=ps)
+            self.params, *rows, self.k_pages, self.v_pages, *segs_dev,
+            self._base_key, cfg=self.cfg, page_size=ps)
+        if self.spec_k > 0:
+            # drafter mirror of the whole packed round (the sampled boundary
+            # tokens are the target's business; the drafter only needs its
+            # cache to hold every committed position)
+            _, self.dk_pages, self.dv_pages = mr.prefill_pack_step(
+                self.draft_params, *rows, self.dk_pages, self.dv_pages,
+                *segs_dev, self._base_key, cfg=self.draft_cfg, page_size=ps)
         tn = toks_dev.cpu().numpy()                # one host sync per round
         now = time.monotonic()
         out: list = []
@@ -362,24 +405,60 @@ class TorchPagedBackend:
         return out
 
     # ------------------------------------------------------------ decode
-    def decode(self, seqs) -> list[int]:
+    def _prepare_step(self, seqs) -> None:
+        """What both decode steps do first: flush queued demotions, sync
+        the device batch state if membership changed, record the bucket."""
         self._flush_demotes()
-        n = len(seqs)
         if not self._slots_current(seqs):
             self._sync_slots(seqs)
         self.decode_buckets.add((self._nb, self._npgb))
+
+    def _advance_mirrors(self, emitted, last_toks) -> None:
+        """Advance the host mirrors exactly like the step advanced the
+        device state: active rows move `emitted` tokens on and keep
+        `last_toks` as their last token."""
+        active = self._m_lens[:self._nb] > 0
+        self._m_lens[:self._nb] += np.where(active, emitted, 0).astype(
+            np.int32)
+        self._m_toks[:self._nb] = np.where(active, last_toks,
+                                           self._m_toks[:self._nb])
+
+    def decode(self, seqs) -> list[int]:
+        self._prepare_step(seqs)
         toks, self._dstate, self.k_pages, self.v_pages = mr.decode_step(
             self.params, self._dstate, self.k_pages, self.v_pages,
             self._base_key, cfg=self.cfg, page_size=self.page_size,
             nb=self._nb, npgb=self._npgb)
         out = toks.cpu().numpy()               # the single host sync
-        # advance the mirrors exactly like the step advanced the device
-        # state (active rows only)
-        active = self._m_lens[:self._nb] > 0
-        self._m_lens[:self._nb] += active
-        self._m_toks[:self._nb] = np.where(active, out[:self._nb],
-                                           self._m_toks[:self._nb])
-        return [int(t) for t in out[:n]]
+        self._advance_mirrors(1, out[:self._nb])
+        return [int(t) for t in out[:len(seqs)]]
+
+    def decode_many(self, seqs) -> Optional[list]:
+        """ReplicaCore's speculative step contract: None when speculation is
+        off (the core then calls `decode`); else ONE `mr.spec_decode_step`
+        over the same persistent bucketed batch state and, like `decode`,
+        one host sync per step. Returns the n_acc+1 verified tokens of each
+        sequence, all target samples (the non-speculative stream, unless
+        the synthetic-acceptance knob is set)."""
+        if self.spec_k <= 0:
+            return None
+        self._prepare_step(seqs)
+        (T, n_acc, self._dstate, self.k_pages, self.v_pages,
+         self.dk_pages, self.dv_pages) = mr.spec_decode_step(
+            self.params, self.draft_params, self._dstate,
+            self.k_pages, self.v_pages, self.dk_pages, self.dv_pages,
+            self._base_key, self._scratch, cfg=self.cfg, dcfg=self.draft_cfg,
+            page_size=self.page_size, nb=self._nb, npgb=self._npgb,
+            k_spec=self.spec_k, synth_rate=self.spec_synth_rate)
+        # (T, n_acc) in one transfer: the single host sync
+        both = torch.cat([T, n_acc[:, None]], dim=1).cpu().numpy()
+        Tn, an = both[:, :-1], both[:, -1]
+        self._advance_mirrors(an + 1, Tn[np.arange(self._nb), an])
+        n = len(seqs)
+        self.spec_dispatches += 1
+        self.spec_drafted += n * self.spec_k
+        self.spec_accepted += int(an[:n].sum())
+        return [[int(t) for t in Tn[i, :an[i] + 1]] for i in range(n)]
 
     def _slots_current(self, seqs) -> bool:
         if len(self._slots) != len(seqs):

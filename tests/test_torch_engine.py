@@ -4,7 +4,7 @@ models; its own hot-path invariants hold (bucketed == exact, packed ==
 sequential, chunked prefill, no upload in steady state, bounded decode
 shapes); `ReplicaCore` + `TorchPagedBackend` makes the decision stream
 `JaxPagedBackend` makes on the replica-parity trace; and the entry points
-refuse what this slice does not port."""
+refuse what the port does not carry yet."""
 from __future__ import annotations
 
 import dataclasses
@@ -210,9 +210,22 @@ def test_engine_needs_cuda_unless_asked_for_cpu(torch_qwen):
 
 @pytest.mark.parametrize("what", ["spec_k", "host_pages", "moe"])
 def test_unported_paths_raise(torch_qwen, what):
-    """Speculation and MoE are refused; the host KV tier, refused until its
-    slice landed, is now accepted and allocates its host mirror."""
+    """MoE is refused. The host KV tier and speculation, each refused until
+    its slice landed, are now accepted: the tier allocates its host mirror;
+    speculation without a drafter raises ValueError, as the JAX backend
+    does, and with one the backend builds the drafter's pools."""
     cfg, params = torch_qwen
+    if what == "spec_k":
+        with pytest.raises(ValueError, match="draft"):
+            Engine(cfg, params, EngineConfig(**{what: 2}), device="cpu")
+        eng = Engine(cfg, params, EngineConfig(**{what: 2}), draft_cfg=cfg,
+                     draft_params=params, device="cpu")
+        be = eng.backend
+        assert be.spec_k == 2
+        assert be.dk_pages.shape == be.dv_pages.shape == be.k_pages.shape
+        assert be.dk_pages.dtype == be.k_pages.dtype
+        assert be.dk_pages.data_ptr() != be.k_pages.data_ptr()
+        return
     if what == "host_pages":
         eng = Engine(cfg, params, EngineConfig(**{what: 2}), device="cpu")
         assert eng.core.cfg.host_pages == 2
@@ -225,6 +238,3 @@ def test_unported_paths_raise(torch_qwen, what):
             Engine(moe, params, device="cpu")
         with pytest.raises(NotImplementedError, match="MoE"):
             init_params(moe, torch.float32, "cpu")
-        return
-    with pytest.raises(NotImplementedError, match="later slice"):
-        Engine(cfg, params, EngineConfig(**{what: 2}), device="cpu")

@@ -4,7 +4,8 @@ hit rate under eviction pressure (`tests/test_hosttier.py`'s engine
 scenario); `ReplicaCore` + `TorchPagedBackend` with the tier on makes the
 decision stream `JaxPagedBackend` makes on the host-tier parity trace; a
 load-back restores the demoted bytes exactly; a cancel racing a load-back
-releases every host pin; the backend refuses page ids outside its pool."""
+releases every host pin, and so does the engine's deadline sweep, as the
+JAX engine's does; the backend refuses page ids outside its pool."""
 from __future__ import annotations
 
 import jax
@@ -211,6 +212,63 @@ def test_cancel_during_load_releases_host_pins(torch_qwen):
     core.submit(_gen(GenRequest, SamplingParams, 3, range(300, 310), 4))
     _drain(core)
     assert core.completions == 3
+
+
+def _deadline_during_load(eng, R, SP, FR):
+    """`_pressured_core`'s scenario through an `Engine`: the replay of the
+    first prompt waits in `loading` for its host pages when its deadline
+    passes. Returns (its result, the decisions, the abort_load calls, the
+    host pins and device pages held after the sweep)."""
+    aborts = []
+    abort = eng.backend.abort_load
+    eng.backend.abort_load = lambda seq: (aborts.append(seq.req.rid),
+                                          abort(seq))
+    eng.core.decisions = []                       # start recording
+    eng.generate([_gen(R, SP, 0, range(100, 130), 4)])
+    eng.generate([_gen(R, SP, 1, range(200, 230), 4)])
+    req = _gen(R, SP, 2, range(100, 130), 4)
+    req.deadline_s = 60.0
+    eng.submit(req)
+    eng.step()                                    # admitted into loading
+    assert [s.req.rid for s in eng.loading] == [2]
+    pins = eng.core.radix.host.total_pins()
+    req.arrival_s -= 120.0                        # the deadline has passed
+    eng.step()                                    # the sweep reaps it
+    assert eng.results[2].finish_reason == FR.DEADLINE
+    ccfg = eng.core.cfg
+    held = (ccfg.n_pages - ccfg.reserved_pages - eng.core.alloc.free_pages
+            - eng.core.radix.cached_pages)
+    return (pins, eng.core.decisions, aborts,
+            eng.core.radix.host.total_pins(), held, len(eng.loading))
+
+
+def test_deadline_sweep_reaps_a_loading_sequence(qwen_reduced,
+                                                 qwen_model_params,
+                                                 torch_qwen):
+    """A request whose deadline passes while its host pages load back is
+    cancelled with DEADLINE: `abort_load` drops the staged copy, the host
+    pins and device pages come back, and the JAX engine makes the same
+    decisions in the same setup."""
+    from repro.serving import FinishReason as JaxFinishReason
+    from repro_torch.serving import FinishReason
+    _, jparams = qwen_model_params
+    tcfg, tparams = torch_qwen
+    small = dict(page_size=8, n_pages=6, max_batch=1, max_seq_len=64,
+                 prefill_pad=16, host_pages=16)
+    teng = Engine(tcfg, tparams, EngineConfig(**small), device="cpu")
+    got = _deadline_during_load(teng, GenRequest, SamplingParams,
+                                FinishReason)
+    jeng = JaxEngine(qwen_reduced, jparams, JaxEngineConfig(**small))
+    want = _deadline_during_load(jeng, JaxGenRequest, JaxSamplingParams,
+                                 JaxFinishReason)
+    pins, decisions, aborts, pins_after, held, loading = got
+    assert pins > 0 and aborts == [2]
+    assert pins_after == 0 and held == 0 and loading == 0
+    assert ("cancel", 2) in decisions and any(d[0] == "hostload"
+                                              for d in decisions)
+    assert not teng.backend._staging and teng.backend.loaded_pages == 0
+    assert repr(decisions).encode() == repr(want[1]).encode()
+    assert got == want
 
 
 def test_page_ids_outside_the_pool_raise(torch_qwen):
