@@ -15,6 +15,11 @@ Phases, in order; any failure exits non-zero:
      page_gather / page_scatter at the full-width
      Llama-3.1-8B pool (32 x 1024 x 16 x 8 x 128), bf16 and fp32, bit for
      bit, with untouched pages and a gather/scatter round trip checked;
+     flash_attention (Llama-3.1-8B attention widths, causal and full, S = T
+     and S != T, bf16 and fp32) and ssd_scan (Mamba2-780m widths, B=2,
+     S=2048, chunks 256 and 128, the test sweeps and chunk invariance)
+     through their entry points `ops.flash_attention` / `ops.ssd_scan`,
+     with their launches counted;
   4. serve multi-turn sessions that share prefixes through the port's
      `Engine` on full-width Llama-3.1-8B (random bf16 weights from a seeded
      generator, all 32 layers), check every request's result, the prefix
@@ -37,7 +42,8 @@ Phases, in order; any failure exits non-zero:
      fp32 model: plain serving, the host tier, one router pull, and
      speculation (both drafters) against the plain non-speculative tokens;
   6. print measurements (engine throughput, each kernel's time beside its
-     bound, its plain version's and its library call's time, profiles of
+     bound, its plain version's and its library call's time (for
+     flash_attention, scaled_dot_product_attention), profiles of
      steady plain and speculative decode steps at batch 8, the host
      tier's D2H / H2D rates and a pull's time per MB) with the card's name
      and power limit,
@@ -61,7 +67,8 @@ from pathlib import Path
 DEVICE = "cuda"
 MODEL = "llama31-8b"               # the paper's serving model, full width
 SMALL = "llama31-8b-reduced"       # the fp32 model of the CPU token check
-KERNELS = ("paged_decode", "paged_verify", "page_copy")   # csrc/<name>.cu
+KERNELS = ("paged_decode", "paged_verify", "page_copy", "flash_attention",
+           "ssd_scan")                                 # csrc/<name>.cu
 SPEC_K = 3                         # drafts per speculative step
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
@@ -69,6 +76,9 @@ TOL = {"torch.bfloat16": 2e-2, "torch.float32": 2e-5}
 # per (sequence, head) row against the plain version in fp32: two bf16
 # ulps at the row's largest value; fp32 summation order alone for fp32
 ROW_RTOL = {"torch.bfloat16": 8e-3, "torch.float32": 1e-4}
+SSD_ATOL, SSD_RTOL = 5e-5, 5e-4    # tests/test_kernels.py:221
+ATTN = "llama31-8b"                # flash_attention's full widths
+SSM = "mamba2-780m"                # ssd_scan's full widths
 
 
 def fail(msg: str) -> None:
@@ -133,18 +143,30 @@ def device_ms(fn, iters: int = 50, warmup: int = 5) -> tuple[float, str]:
     return cuda_ms(fn, iters, warmup=0), "events"
 
 
+def roofline(nbytes: float, flops: float, peak: float) -> tuple[float, str]:
+    """The least time of a call, in ms: the larger of its bytes over the HBM
+    rate and its flops over `peak`, and which of the two it is."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / peak
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
 def max_abs_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
-def check_close(name: str, got, want) -> float:
+def check_close(name: str, got, want, atol=None, rtol=None) -> float:
+    """got against want at atol and rtol, by default both TOL of got's
+    dtype; fails the run beyond them or on a non-finite value."""
     import torch
-    tol = TOL[str(got.dtype)]
+    atol = TOL[str(got.dtype)] if atol is None else atol
+    rtol = TOL[str(got.dtype)] if rtol is None else rtol
     err = max_abs_err(got, want)
     if not torch.isfinite(got.float()).all():
         fail(f"{name}: non-finite output")
-    if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
-        fail(f"{name}: max |err| {err:.3e} beyond atol=rtol={tol}")
+    if not torch.allclose(got.float(), want.float(), atol=atol, rtol=rtol):
+        fail(f"{name}: max |err| {err:.3e} beyond atol={atol} rtol={rtol}")
     return err
 
 
@@ -156,20 +178,42 @@ def check_rows(name: str, got, q, k_pages, v_pages, table, lens,
     row's max |value|. A long context's outputs are small, so a fixed
     absolute tolerance barely binds there; this bound holds every row as
     tightly as the output's own rounding allows."""
-    import numpy as np
     from repro_torch.kernels import ref
     want = (plain or ref.paged_decode_ref)(
         q.float(), k_pages.float(), v_pages.float(), table, lens)
-    row_err = ((got.float() - want).abs().amax(-1)
-               / want.abs().amax(-1).clamp_min(1e-30))
-    worst = float(row_err.max())
+    worst, at = worst_row(got, want)
     tol = ROW_RTOL[str(got.dtype)]
     if not worst <= tol:
-        at = tuple(int(i) for i in np.unravel_index(int(row_err.argmax()),
-                                                    tuple(row_err.shape)))
         fail(f"{name}: row {at} (seq, [query,] head; len "
              f"{int(lens[at[0]])}) max |err| / max |want| = {worst:.3e} "
              f"beyond {tol} against the fp32 plain version")
+    return worst
+
+
+def worst_row(got, want) -> tuple[float, tuple]:
+    """The largest over rows (the last axis) of a row's max |got - want|
+    over the row's max |want|, and the index of that row."""
+    import numpy as np
+    row_err = ((got.float() - want).abs().amax(-1)
+               / want.abs().amax(-1).clamp_min(1e-30))
+    at = np.unravel_index(int(row_err.argmax()), tuple(row_err.shape))
+    return float(row_err.max()), tuple(int(i) for i in at)
+
+
+def check_flash_rows(name: str, got, q, k, v, causal: bool) -> float:
+    """Hold each (batch, head, query) row of a flash attention output against
+    `flash_attention_ref` run in fp32 on the same inputs, upcast, at
+    ROW_RTOL of the row's max |value|, as `check_rows` does for the paged
+    kernels: the bf16 plain version rounds its logits to bf16, so `got`
+    against it alone leaves room for a bf16-only fault."""
+    from repro_torch.kernels import ref
+    want = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                   causal=causal)
+    worst, at = worst_row(got, want)
+    tol = ROW_RTOL[str(got.dtype)]
+    if not worst <= tol:
+        fail(f"{name}: row {at} (batch, head, query) max |err| / max |want| "
+             f"= {worst:.3e} beyond {tol} against the fp32 plain version")
     return worst
 
 
@@ -186,10 +230,7 @@ def paged_bound(q, k_pages, table, lens) -> tuple[float, str]:
     nbytes = (2 * n_tok * K * hd * it + 2 * B * H * hd * it
               + 4 * n_pages + 4 * B)
     flops = 4 * n_tok * H * hd
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[str(q.dtype)]
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    return roofline(nbytes, flops, PEAK_FLOPS[str(q.dtype)])
 
 
 def kernel_inputs(dtype, lens, seed: int, Q=None):
@@ -238,10 +279,242 @@ def verify_bound(q, k_pages, table, lens) -> tuple[float, str]:
     nbytes = (2 * n_tok * K * hd * it + 2 * B * Q * H * hd * it
               + 4 * n_pages + 4 * B)
     flops = 4 * attended * H * hd
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[str(q.dtype)]
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    return roofline(nbytes, flops, PEAK_FLOPS[str(q.dtype)])
+
+
+def flash_inputs(B, H, K, S, T, hd, dtype, seed: int):
+    """q (B, H, S, hd) and k, v (B, K, T, hd), standard normal, on the
+    card."""
+    import torch
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    return [torch.randn(shape, generator=g, device=DEVICE).to(dtype)
+            for shape in ((B, H, S, hd), (B, K, T, hd), (B, K, T, hd))]
+
+
+def flash_bound(q, k, causal: bool) -> tuple[float, str]:
+    """Least time for one flash attention call: q, k, v read once and the
+    output written once over the HBM rate, against 4 * hd flops (QK and PV)
+    per (query, key) pair a head attends, over the peak of the dtype:
+    causal row s attends min(s + 1, T) keys. Returns (ms, "bytes" |
+    "operations")."""
+    B, H, S, hd = q.shape
+    K, T = k.shape[1], k.shape[2]
+    nbytes = (2 * B * H * S + 2 * B * K * T) * hd * q.element_size()
+    if not causal:
+        pairs = S * T
+    elif S <= T:
+        pairs = S * (S + 1) // 2
+    else:
+        pairs = T * (T + 1) // 2 + (S - T) * T
+    return roofline(nbytes, 4 * B * H * hd * pairs, PEAK_FLOPS[str(q.dtype)])
+
+
+def ssd_inputs(B, H, S, P, G, N, seed: int, a_hi: float = 4.0):
+    """x, dt, a, B_, C_ on the card, drawn as tests/test_kernels.py draws
+    them: x, B_, C_ standard normal, dt ~ U(0.01, 0.2), a ~ -U(0.5, a_hi)."""
+    import torch
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+
+    def uniform(shape, lo, hi):
+        return lo + (hi - lo) * torch.rand(shape, generator=g, device=DEVICE)
+
+    x = torch.randn((B, H, S, P), generator=g, device=DEVICE)
+    dt = uniform((B, H, S), 0.01, 0.2)
+    a = -uniform((H,), 0.5, a_hi)
+    B_ = torch.randn((B, G, S, N), generator=g, device=DEVICE)
+    C_ = torch.randn((B, G, S, N), generator=g, device=DEVICE)
+    return x, dt, a, B_, C_
+
+
+def check_ssd(name: str, got, want) -> float:
+    return check_close(name, got, want, atol=SSD_ATOL, rtol=SSD_RTOL)
+
+
+def ssd_bound(x, B_, chunk: int) -> tuple[float, str]:
+    """Least time for one SSD scan call: every input read once and y
+    written once (fp32) over the HBM rate, against the flops the scan
+    itself needs, whatever the chunking, over the fp32 peak outside the
+    tensor cores: per (token, head) the state update dt x B^T and the
+    readout C h, N x P multiply-adds each (4 N P flops), plus the state's
+    decay once per chunk of `chunk` (N P per chunk and head). The intra-chunk
+    products of the chunked form (C B^T and the masked M x) are overhead of
+    that form and not counted. Returns (ms, "bytes" | "operations")."""
+    Bb, H, S, P = x.shape
+    G, N = B_.shape[1], B_.shape[3]
+    nbytes = 4 * (2 * Bb * H * S * P + Bb * H * S + H + 2 * Bb * G * S * N)
+    flops = Bb * H * N * P * (4 * S + S // chunk)
+    return roofline(nbytes, flops, PEAK_FLOPS["torch.float32"])
+
+
+def dense_kernels_phase() -> dict:
+    """flash_attention and ssd_scan through their entry points
+    (`ops.flash_attention`, `ops.ssd_scan`) on the card, each output held
+    against its plain version on the same inputs. flash_attention at
+    Llama-3.1-8B's attention widths (H 32, K 8, hd 128): B=1, S=T=2048
+    causal; B=2, S=T=384 causal and full; B=1, S=128, T=2048 full (a prefill
+    extending a cached prefix); B=1, S=128, T=256 causal (the absolute
+    mask); then tests/test_kernels.py's small shapes (hd 16, 32, 64), all
+    in bf16 (2e-2) and fp32 (2e-5). ssd_scan at Mamba2-780m's widths (H 48,
+    P 64, N 128, G 1), B=2, S=2048, at chunk 256 (its config) and 128 (the
+    kernel's default), tests/test_kernels.py's three sweeps and its chunk
+    invariance (chunks 16, 32, 48, 96 on one input, each against the plain
+    scan and against chunk 16's output), at atol 5e-5 / rtol 5e-4. Counts
+    the launches of this path. Returns the errors, the launches and the
+    full-width inputs for phase 6."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    acfg, scfg = get_config(ATTN), get_config(SSM)
+    H, K = acfg.n_heads, acfg.n_kv_heads
+    hd = acfg.head_dim or acfg.d_model // acfg.n_heads
+    ssm = scfg.ssm
+    sH, P, N, G = (ssm.expand * scfg.d_model // ssm.head_dim, ssm.head_dim,
+                   ssm.state, ssm.n_groups)
+    full = [(1, H, K, 2048, 2048, hd, True), (2, H, K, 384, 384, hd, True),
+            (2, H, K, 384, 384, hd, False), (1, H, K, 128, 2048, hd, False),
+            (1, H, K, 128, 256, hd, True)]
+    small = [(B, h, k, S, S, d, causal)
+             for B, h, k, S, d in ((1, 4, 4, 128, 32), (2, 8, 2, 256, 32),
+                                   (1, 4, 1, 128, 64), (1, 2, 2, 384, 16))
+             for causal in (True, False)]
+    out = {"flash_err": {}, "flash_row": {}, "ssd_err": {}}
+    calls = {"flash": 0, "ssd": 0}
+    flash_attention.launches = ssd_scan.launches = 0   # entry points start
+    for dtype in (torch.bfloat16, torch.float32):
+        worst = worst_rows = 0.0
+        for i, (B, h, k, S, T, d, causal) in enumerate(full + small):
+            q, kk, vv = flash_inputs(B, h, k, S, T, d, dtype, seed=20 + i)
+            got = ops.flash_attention(q, kk, vv, causal=causal)
+            calls["flash"] += 1
+            torch.cuda.synchronize()
+            name = (f"flash_attention {str(dtype)[6:]} B={B} H={h} K={k} "
+                    f"S={S} T={T} hd={d} {'causal' if causal else 'full'}")
+            err = check_close(name, got, ref.flash_attention_ref(
+                q, kk, vv, causal=causal))
+            row = check_flash_rows(name, got, q, kk, vv, causal)
+            if i < len(full):
+                print(f"kernel check: {name}: max|err|={err:.3e} (tol "
+                      f"{TOL[str(dtype)]}), against fp32 per row "
+                      f"{row:.3e} (tol {ROW_RTOL[str(dtype)]})", flush=True)
+            if i == 0:
+                out["flash_err"][str(dtype)] = err
+            worst = max(worst, err)
+            worst_rows = max(worst_rows, row)
+            del q, kk, vv, got
+        print(f"kernel check: flash_attention {str(dtype)[6:]} at "
+              f"tests/test_kernels.py's {len(small)} small shapes (hd 16, "
+              f"32, 64) and the {len(full)} above: worst max|err|="
+              f"{worst:.3e} (tol {TOL[str(dtype)]}), against fp32 per row "
+              f"{worst_rows:.3e} (tol {ROW_RTOL[str(dtype)]})", flush=True)
+        out["flash_row"][str(dtype)] = worst_rows
+        torch.cuda.empty_cache()
+
+    args = ssd_inputs(2, sH, 2048, P, G, N, seed=30)
+    want = ref.ssd_scan_ref(*args, chunk=ssm.chunk)     # chunk-free scan
+    for chunk in (ssm.chunk, 128):
+        got = ops.ssd_scan(*args, chunk=chunk)
+        calls["ssd"] += 1
+        torch.cuda.synchronize()
+        name = (f"ssd_scan B=2 H={sH} S=2048 P={P} G={G} N={N} "
+                f"chunk={chunk}")
+        err = check_ssd(name, got, want)
+        out["ssd_err"][chunk] = err
+        print(f"kernel check: {name}: max|err|={err:.3e} (atol {SSD_ATOL}, "
+              f"rtol {SSD_RTOL}; |y| up to {float(want.abs().max()):.2f})",
+              flush=True)
+    out["ssd_args"] = args
+    del want
+    for i, (B, h, S, p, g, n, chunk) in enumerate(
+            ((1, 2, 64, 16, 1, 16, 16), (2, 4, 128, 16, 2, 24, 32),
+             (1, 8, 96, 8, 4, 16, 48))):
+        sargs = ssd_inputs(B, h, S, p, g, n, seed=31 + i)
+        got = ops.ssd_scan(*sargs, chunk=chunk)
+        calls["ssd"] += 1
+        err = check_ssd(f"ssd_scan sweep {(B, h, S, p, g, n, chunk)}", got,
+                        ref.ssd_scan_ref(*sargs, chunk=chunk))
+        print(f"kernel check: ssd_scan (B,H,S,P,G,N,chunk)="
+              f"{(B, h, S, p, g, n, chunk)}: max|err|={err:.3e}", flush=True)
+    sargs = ssd_inputs(1, 2, 96, 8, 1, 16, seed=34, a_hi=2.0)
+    want = ref.ssd_scan_ref(*sargs, chunk=16)
+    outs = []
+    for chunk in (16, 32, 48, 96):
+        outs.append(ops.ssd_scan(*sargs, chunk=chunk))
+        calls["ssd"] += 1
+        check_ssd(f"ssd_scan chunk={chunk}", outs[-1], want)
+        check_ssd(f"ssd_scan chunk={chunk} against chunk=16", outs[-1],
+                  outs[0])
+    print(f"kernel check: ssd_scan chunk invariance, chunks 16/32/48/96: "
+          f"max|err| against the plain scan "
+          f"{max(max_abs_err(o, want) for o in outs):.3e}, against chunk "
+          f"16 {max(max_abs_err(o, outs[0]) for o in outs):.3e}", flush=True)
+    out["launches"] = {"flash": flash_attention.launches,
+                       "ssd": ssd_scan.launches}       # entry points end
+    if out["launches"] != calls:
+        fail(f"flash_attention / ssd_scan launched {out['launches']} times "
+             f"for {calls} calls through ops")
+    out["full"] = (H, K, hd, sH, P, N, G, ssm.chunk)
+    return out
+
+
+def time_dense_kernels(card: str, dense: dict) -> dict:
+    """Device time per launch of flash_attention (bf16 and fp32, B=1,
+    S=T=2048 causal, Llama-3.1-8B widths) and ssd_scan (Mamba2-780m widths,
+    B=2, S=2048, chunk 256 and 128) beside their plain versions, their
+    bounds and, for flash_attention, the library call
+    `scaled_dot_product_attention(..., is_causal=True, enable_gqa=True)`
+    (a yardstick only, held against the plain version once before it is
+    timed). Returns the bf16 flash and chunk-256 ssd numbers for the
+    kernels line."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    H, K, hd, sH, P, N, G, chunk = dense["full"]
+    rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = flash_inputs(1, H, K, 2048, 2048, hd, dtype, seed=40)
+        plain = ref.flash_attention_ref(q, k, v, causal=True)
+        lib_err = check_close(
+            f"scaled_dot_product_attention {str(dtype)[6:]} against the "
+            f"plain version", F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True), plain)
+        del plain
+        kern, how = device_ms(lambda: flash_attention(q, k, v, causal=True),
+                              iters=20)
+        pl, _ = device_ms(lambda: ref.flash_attention_ref(q, k, v,
+                                                          causal=True),
+                          iters=5, warmup=2)
+        lib, _ = device_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), iters=20)
+        b_ms, b_by = flash_bound(q, k, True)
+        print(f"[{card}] flash_attention {str(dtype)[6:]} B=1 H={H} K={K} "
+              f"S=T=2048 hd={hd} causal: kernel {kern * 1e3:.1f} us ({how}), "
+              f"plain {pl * 1e3:.1f} us, library (SDPA, max|err| against "
+              f"plain {lib_err:.3e}) {lib * 1e3:.1f} us, bound "
+              f"{b_ms * 1e3:.2f} us ({b_by}; roofline share "
+              f"{100 * b_ms / kern:.1f}%)", flush=True)
+        rows[str(dtype)] = dict(ms=kern, plain_ms=pl, library_ms=lib,
+                                bound_ms=b_ms, bound_by=b_by)
+        del q, k, v
+        torch.cuda.empty_cache()
+    args = dense["ssd_args"]
+    pl, _ = device_ms(lambda: ref.ssd_scan_ref(*args, chunk=chunk), iters=2,
+                      warmup=1)
+    # one bound for both timings: the scan's work at the configured chunk
+    b_ms, b_by = ssd_bound(args[0], args[3], chunk)
+    for c in (128, chunk):
+        kern, how = device_ms(lambda: ssd_scan(*args, chunk=c), iters=20)
+        print(f"[{card}] ssd_scan B=2 H={sH} S=2048 P={P} G={G} N={N} "
+              f"chunk={c}: kernel {kern * 1e3:.1f} us ({how}), plain "
+              f"(token-by-token scan) {pl * 1e3:.1f} us, bound "
+              f"{b_ms * 1e3:.2f} us ({b_by}; roofline share "
+              f"{100 * b_ms / kern:.1f}%)", flush=True)
+    # the kernels line reports the configured chunk, timed last
+    rows["ssd"] = dict(ms=kern, plain_ms=pl, bound_ms=b_ms, bound_by=b_by)
+    return rows
 
 
 def session_requests(GenRequest, SamplingParams, vocab: int, rng):
@@ -908,6 +1181,9 @@ def main() -> int:
               f"untouched, gather then scatter restores the pool",
               flush=True)
 
+    # flash_attention and ssd_scan through their entry points
+    dense = dense_kernels_phase()
+
     # ---- 4. the engine at full width: Llama-3.1-8B, random bf16 weights
     cfg = get_config(MODEL)
     t0 = time.perf_counter()
@@ -1213,6 +1489,8 @@ def main() -> int:
           f"{1e3 * pull_t:.2f} ms = {1e3 * pull_t / pull_mb:.3f} ms/MB",
           flush=True)
 
+    dense_t = time_dense_kernels(card, dense)
+
     copy_launches = {"gather": host_launches[0] + router_launches[0],
                      "scatter": host_launches[1] + router_launches[1]}
     rows = [{
@@ -1239,6 +1517,24 @@ def main() -> int:
             "ms": k, "plain_ms": pl, "bound_ms": copy_t[16]["bound"],
             "bound_by": "bytes", "library_ms": lib,
             "shape": f"N=16 pages of bf16 pools {list(POOL)}"})
+    H, K, hd, sH, P, N, G, chunk = dense["full"]
+    rows += [{
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:84",
+        "launches": dense["launches"]["flash"],
+        "max_abs_err": dense["flash_err"][str(torch.bfloat16)],
+        **dense_t[str(torch.bfloat16)],
+        "shape": f"bf16 q (1, {H}, 2048, {hd}), k/v (1, {K}, 2048, {hd}), "
+                 f"causal"}, {
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:86",
+        "launches": dense["launches"]["ssd"],
+        "max_abs_err": dense["ssd_err"][chunk], **dense_t["ssd"],
+        "library_ms": None,
+        "shape": f"fp32 x (2, {sH}, 2048, {P}), B/C (2, {G}, 2048, {N}), "
+                 f"chunk {chunk}"}]
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

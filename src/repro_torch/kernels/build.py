@@ -3,8 +3,9 @@ plain C interface, and load them with `ctypes`.
 
 Each `csrc/<name>.cu` compiles for sm_90a into `_build/<name>-<hash>.so`
 beside this file (the directory is git-ignored), at the first call that
-needs it; the hash of the source and flags names the library, so an edited
-source rebuilds and an unchanged one loads at once. The library is written
+needs it; the hash of the source, the shared headers `csrc/*.cuh` and the
+flags names the library, so an edited source or header rebuilds and an
+unchanged one loads at once. The library is written
 under a temporary name and renamed into place, so processes that build the
 same source together never load a half-written file.
 """
@@ -41,7 +42,9 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
+                            + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -8,6 +8,27 @@ import torch
 NEG_INF = -2.0e38
 
 
+def flash_attention_ref(q, k, v, *, causal: bool = True) -> torch.Tensor:
+    """Dense GQA attention (the prefill form).
+    q: (B,H,S,hd); k/v: (B,K,T,hd) with H % K == 0, query head h reading
+    KV head h // (H//K). With `causal`, row s sees columns t <= s: the
+    absolute mask, with no offset when S != T. fp32 softmax; the
+    probabilities are cast to v's dtype before the PV product, as the JAX
+    oracle does (`src/repro/kernels/ref.py:9-23`)."""
+    B, H, S, hd = q.shape
+    K, T = k.shape[1], k.shape[2]
+    G = H // K
+    qg = q.reshape(B, K, G, S, hd)
+    logits = torch.einsum("bkgsh,bkth->bkgst", qg, k).float() * hd ** -0.5
+    if causal:
+        mask = (torch.arange(S, device=q.device)[:, None]
+                >= torch.arange(T, device=q.device)[None, :])
+        logits = torch.where(mask, logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgst,bkth->bkgsh", probs, v)
+    return out.reshape(B, H, S, hd)
+
+
 def paged_decode_ref(q, k_pages, v_pages, block_table, seq_lens) -> torch.Tensor:
     """Decode attention over a paged KV cache.
     q: (B,H,hd); k_pages/v_pages: (P,page,K,hd); block_table: (B,npages)
@@ -83,3 +104,26 @@ def page_scatter_ref(pool, staged, ids) -> torch.Tensor:
     the pool at page slots `ids` (unique), IN PLACE. Returns `pool`."""
     pool[:, ids.long()] = staged.transpose(0, 1).to(pool.dtype)
     return pool
+
+
+def ssd_scan_ref(x, dt, a, B_, C_, *, chunk: int) -> torch.Tensor:
+    """The Mamba2 SSD scan, token by token (zero initial state): the plain
+    version of the chunked kernel, which gives the same answer for every
+    `chunk` (the argument is the kernel's and is not used here).
+    x: (B,H,S,P) f32; dt: (B,H,S) f32 post-softplus; a: (H,) f32 (< 0);
+    B_/C_: (B,G,S,N) f32, group g serving heads g*H//G .. (g+1)*H//G - 1.
+    Returns y: (B,H,S,P) f32 (`src/repro/kernels/ref.py:98-121`)."""
+    Bb, H, S, P = x.shape
+    G, N = B_.shape[1], B_.shape[3]
+    hpg = H // G
+    Bh = B_.repeat_interleave(hpg, dim=1)                   # (B,H,S,N)
+    Ch = C_.repeat_interleave(hpg, dim=1)
+    h = torch.zeros((Bb, H, P, N), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(S):
+        dtt = dt[:, :, t]
+        decay = torch.exp(dtt * a[None, :])
+        h = h * decay[..., None, None] + torch.einsum(
+            "bh,bhp,bhn->bhpn", dtt, x[:, :, t], Bh[:, :, t])
+        ys.append(torch.einsum("bhpn,bhn->bhp", h, Ch[:, :, t]))
+    return torch.stack(ys, dim=2)                            # (B,H,S,P)

@@ -186,8 +186,13 @@ class TorchPagedBackend:
         if not self._demote_q:
             return
         q, self._demote_q = self._demote_q, []
+        # one eviction round can give a host page to two demotions (the
+        # radix retires the host leaf it demoted a moment earlier): the
+        # last one wins, as in JAX's in-order writes, and index_copy_ gets
+        # unique indices (with repeats it keeps any of them)
+        last = {h: d for d, h in q}
         ks, vs = ops.page_gather(self.k_pages, self.v_pages,
-                                 self._ids(d for d, _ in q))
+                                 self._ids(last.values()))
         if self._on_card:
             # one synchronous D2H per flush (both stacks, then one sync)
             kh, vh = self._host_empty(ks.shape), self._host_empty(vs.shape)
@@ -195,7 +200,7 @@ class TorchPagedBackend:
             vh.copy_(vs, non_blocking=True)
             torch.cuda.current_stream(self.device).synchronize()
             ks, vs = kh, vh
-        hp = torch.tensor([h for _, h in q], dtype=torch.int64)
+        hp = torch.tensor(list(last), dtype=torch.int64)
         self._h_k.index_copy_(0, hp, ks)
         self._h_v.index_copy_(0, hp, vs)
         self.demoted_pages += len(q)

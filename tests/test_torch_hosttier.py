@@ -277,3 +277,64 @@ def test_page_ids_outside_the_pool_raise(torch_qwen):
         tb.export_pages([0, 6])
     with pytest.raises(ValueError, match="outside"):
         tb.export_pages([-1])
+
+
+def _reuse_trace(eng, R, SP, after_second=None):
+    """A one-page host tier under a pool that holds one 4-page prompt: the
+    second prompt evicts three of the first's pages in ONE round, each
+    taking host page 0 from the one demoted just before it (the radix
+    retires that host leaf to make room), so one flush holds three
+    demotions onto one host page; the replay of the first prompt then
+    loads the last of them back. Returns the results and the decisions."""
+    rng = np.random.default_rng(21)
+    first, second = (tuple(int(t) for t in rng.integers(
+        1, eng.cfg.vocab, size=525)) for _ in range(2))
+    eng.core.decisions = []                       # start recording
+    out = eng.generate([_gen(R, SP, 0, first, 4)])
+    out += eng.generate([_gen(R, SP, 1, second, 4)])
+    if after_second is not None:
+        after_second()
+    out += eng.generate([_gen(R, SP, 2, first, 4)])
+    return out, eng.core.decisions
+
+
+def test_host_page_reused_within_one_flush(qwen_reduced, qwen_model_params,
+                                           torch_qwen):
+    """When one flush demotes several device pages onto the same host page,
+    the mirror keeps the LAST demotion's bytes, as the JAX backend's
+    in-order writes do; the replay's host hit then loads those bytes, and
+    the tokens and the decision stream equal the JAX engine's."""
+    _, jparams = qwen_model_params
+    tcfg, tparams = torch_qwen
+    small = dict(page_size=128, n_pages=7, max_batch=1, max_seq_len=1024,
+                 prefill_pad=16, host_pages=1)
+    teng = Engine(tcfg, tparams, EngineConfig(**small), device="cpu")
+    tb = teng.backend
+    demotes, snaps = [], {}
+    demote = teng.core.radix.on_demote
+
+    def snap_demote(dev_page, host_page):
+        demotes.append((dev_page, host_page))
+        snaps[host_page] = (tb.k_pages[:, dev_page].clone(),
+                            tb.v_pages[:, dev_page].clone())
+        demote(dev_page, host_page)
+
+    def mirror_holds_last():
+        assert len(demotes) >= 2 and len({h for _, h in demotes}) == 1
+        assert not tb._demote_q                   # flushed at the prefill
+        k, v = snaps[demotes[-1][1]]
+        assert torch.equal(tb._h_k[demotes[-1][1]], k)
+        assert torch.equal(tb._h_v[demotes[-1][1]], v)
+
+    teng.core.radix.on_demote = snap_demote
+    tout, tdec = _reuse_trace(teng, GenRequest, SamplingParams,
+                              mirror_holds_last)
+    jeng = JaxEngine(qwen_reduced, jparams, JaxEngineConfig(**small))
+    jout, jdec = _reuse_trace(jeng, JaxGenRequest, JaxSamplingParams)
+
+    assert tb.demoted_pages == teng.core.radix.demoted_pages == len(demotes)
+    assert teng.core.host_hit_tokens == jeng.core.host_hit_tokens > 0
+    assert [r.output_tokens for r in tout] == [r.output_tokens for r in jout]
+    assert [r.cached_tokens for r in tout] == [r.cached_tokens for r in jout]
+    assert repr(tdec).encode() == repr(jdec).encode()
+    assert any(d[0] == "hostload" for d in tdec)
