@@ -6,17 +6,23 @@
 Phases, in order; any failure exits non-zero:
   1. print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from `src/repro_torch/kernels/csrc` (one nvcc
-     per source, all started together) and print the build seconds;
+     per source, all started together) and print the build seconds, and
+     `nvcc -Xptxas -v`'s registers, spills and stack of each kernel of
+     `flash_attention.cu` and `paged_verify.cu`;
   3. hold each kernel against its plain PyTorch version on the card:
      paged_decode at Llama-3.1-8B decode shapes, ragged lengths and garbage
-     block tables; paged_verify at Llama-3.1-8B verify shapes (B=8, Q=4)
-     on a layer of the full-width pool, lens from Q to 3001 across page
-     edges, garbage tables, and at Q=1 against the paged_decode kernel;
+     block tables; paged_verify at Llama-3.1-8B verify shapes (Q=4) on a
+     layer of the full-width pool, with garbage tables: lens from Q to 3001
+     across page edges (B=8), lens at its split plan's edges (len = Q, a
+     split boundary +-1, last splits that hold candidates only, so some
+     rows' partials are fully masked), one sequence over the whole pool
+     (NPG 1024), and at Q=1 against the paged_decode kernel;
      page_gather / page_scatter at the full-width
      Llama-3.1-8B pool (32 x 1024 x 16 x 8 x 128), bf16 and fp32, bit for
      bit, with untouched pages and a gather/scatter round trip checked;
      flash_attention (Llama-3.1-8B attention widths, causal and full, S = T
-     and S != T, bf16 and fp32) and ssd_scan (Mamba2-780m widths, B=2,
+     and S != T, S and T that are no multiple of 64, bf16 and fp32) and
+     ssd_scan (Mamba2-780m widths, B=2,
      S=2048, chunks 256 and 128, the test sweeps and chunk invariance)
      through their entry points `ops.flash_attention` / `ops.ssd_scan`,
      with their launches counted;
@@ -45,7 +51,8 @@ Phases, in order; any failure exits non-zero:
      bound, its plain version's and its library call's time (for
      flash_attention, scaled_dot_product_attention), profiles of
      steady plain and speculative decode steps at batch 8, the host
-     tier's D2H / H2D rates and a pull's time per MB) with the card's name
+     tier's D2H / H2D rates and a pull's time per MB, paged_verify's split
+     plan and its kernels' time per speculative step) with the card's name
      and power limit,
      the kernel table as one JSON line, and last the result line
      {"ok": true, "device": {...}}.
@@ -57,6 +64,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -69,6 +77,8 @@ MODEL = "llama31-8b"               # the paper's serving model, full width
 SMALL = "llama31-8b-reduced"       # the fp32 model of the CPU token check
 KERNELS = ("paged_decode", "paged_verify", "page_copy", "flash_attention",
            "ssd_scan")                                 # csrc/<name>.cu
+PTXAS = ("flash_attention", "paged_verify")    # sources whose -Xptxas -v
+                                               # report is printed
 SPEC_K = 3                         # drafts per speculative step
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
@@ -105,6 +115,26 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def ptxas_report(name: str) -> list[str]:
+    """`nvcc -Xptxas -v`'s report (registers, spills, stack and shared
+    memory of each kernel) on `csrc/<name>.cu` for the library's target, as
+    ptxas prints it (a cubin in the git-ignored build directory, not
+    kept)."""
+    from repro_torch.kernels import build
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cubin = build.BUILD_DIR / f"{name}.ptxas.cubin"
+    flags = [f for f in build.NVCC_FLAGS
+             if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    proc = subprocess.run(
+        [build.nvcc_path(), *flags, "-cubin", "-Xptxas", "-v", "-o",
+         str(cubin), str(build.CSRC / f"{name}.cu")],
+        capture_output=True, text=True)
+    cubin.unlink(missing_ok=True)
+    if proc.returncode != 0:
+        fail(f"nvcc -Xptxas -v failed on {name}.cu:\n{proc.stderr}")
+    return [line for line in proc.stderr.splitlines() if line.strip()]
 
 
 def dev_us(e) -> float:
@@ -282,6 +312,47 @@ def verify_bound(q, k_pages, table, lens) -> tuple[float, str]:
     return roofline(nbytes, flops, PEAK_FLOPS[str(q.dtype)])
 
 
+def split_note(q, k_pages, table, lens) -> tuple[str, int]:
+    """paged_verify's split plan for these inputs, as text with the blocks
+    it launches and those that find live pages, and how many (sequence,
+    split, candidate) partials hold no position the candidate sees (fully
+    masked: the combine's weight-0 case)."""
+    from repro_torch.kernels.paged_verify import (sm_count, split_plan,
+                                                  split_ranges)
+    B, Q, H, hd = q.shape
+    _, page, K, _ = k_pages.shape
+    npg = table.shape[1]
+    ppr, chunk, n_split = split_plan(B, K, npg, page, hd, q.element_size(),
+                                     sm_count(q.device))
+    live = masked = 0
+    for n in lens.tolist():
+        ranges = split_ranges(n, page, npg, chunk, n_split)
+        live += len(ranges)
+        masked += sum(p0 * page >= n - Q + qi + 1 for p0, _ in ranges
+                      for qi in range(Q))
+    return (f"split plan {ppr} pages per round, {chunk} per split, "
+            f"n_split={n_split}: {B * K * n_split} blocks per launch, "
+            f"{live * K} with live pages"), masked
+
+
+def verify_split_lens(dtype) -> list[tuple[str, list[int]]]:
+    """Lens that reach paged_verify's split machinery at Q = SPEC_K + 1 on
+    a layer of the full-width pool: at the edges of the plan that phase 3's
+    shapes (B=8, NPG=188) get, E slots per split: len = Q, E - 1, E, E + 1
+    and 2E + 1 (a last split of one candidate), E + 3 (of three) beside 3001
+    (which sets NPG); and one sequence over every page of the pool (NPG
+    1024)."""
+    import torch
+    from repro_torch.kernels.paged_verify import sm_count, split_plan
+    Q, page = SPEC_K + 1, POOL[2]
+    E = split_plan(8, POOL[3], -(-3001 // page), page, POOL[4],
+                   torch.empty((), dtype=dtype).element_size(),
+                   sm_count(torch.device(DEVICE, 0)))[1] * page
+    return [("split edges", [Q, E - 1, E, E + 1, E + 2, E + 3, 2 * E + 1,
+                             3001]),
+            ("one sequence over the whole pool", [page * POOL[1]])]
+
+
 def flash_inputs(B, H, K, S, T, hd, dtype, seed: int):
     """q (B, H, S, hd) and k, v (B, K, T, hd), standard normal, on the
     card."""
@@ -353,9 +424,12 @@ def dense_kernels_phase() -> dict:
     Llama-3.1-8B's attention widths (H 32, K 8, hd 128): B=1, S=T=2048
     causal; B=2, S=T=384 causal and full; B=1, S=128, T=2048 full (a prefill
     extending a cached prefix); B=1, S=128, T=256 causal (the absolute
-    mask); then tests/test_kernels.py's small shapes (hd 16, 32, 64), all
-    in bf16 (2e-2) and fp32 (2e-5). ssd_scan at Mamba2-780m's widths (H 48,
-    P 64, N 128, G 1), B=2, S=2048, at chunk 256 (its config) and 128 (the
+    mask); B=1, S=T=100 causal and full, and S=64, T=384 causal (rows and
+    columns past S and T inside a 64-wide tile; T=192 lies outside the JAX
+    kernel's domain, which the wrapper refuses); then tests/test_kernels.py's
+    small shapes (hd 16, 32, 64), all in bf16 (2e-2) and fp32 (2e-5).
+    ssd_scan at Mamba2-780m's widths (H 48, P 64, N 128, G 1), B=2,
+    S=2048, at chunk 256 (its config) and 128 (the
     kernel's default), tests/test_kernels.py's three sweeps and its chunk
     invariance (chunks 16, 32, 48, 96 on one input, each against the plain
     scan and against chunk 16's output), at atol 5e-5 / rtol 5e-4. Counts
@@ -374,7 +448,8 @@ def dense_kernels_phase() -> dict:
                    ssm.state, ssm.n_groups)
     full = [(1, H, K, 2048, 2048, hd, True), (2, H, K, 384, 384, hd, True),
             (2, H, K, 384, 384, hd, False), (1, H, K, 128, 2048, hd, False),
-            (1, H, K, 128, 256, hd, True)]
+            (1, H, K, 128, 256, hd, True), (1, H, K, 100, 100, hd, True),
+            (1, H, K, 100, 100, hd, False), (1, H, K, 64, 384, hd, True)]
     small = [(B, h, k, S, S, d, causal)
              for B, h, k, S, d in ((1, 4, 4, 128, 32), (2, 8, 2, 256, 32),
                                    (1, 4, 1, 128, 64), (1, 2, 2, 384, 16))
@@ -1126,13 +1201,18 @@ def main() -> int:
 
     # ---- 2. build
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as ex:     # one nvcc per source
+    with ThreadPoolExecutor(len(KERNELS) + len(PTXAS)) as ex:
+        reports = ex.map(ptxas_report, PTXAS)        # one nvcc per source
         built = list(ex.map(build.compile_library, KERNELS))
+        reports = list(reports)
     for name, (lib_path, nvcc_s) in zip(KERNELS, built):
         print(f"build: {name}.cu -> {lib_path.name} (nvcc {nvcc_s:.2f} s)",
               flush=True)
     print(f"build: {len(KERNELS)} sources in parallel in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
+    for name, lines in zip(PTXAS, reports):
+        for line in lines:
+            print(f"build: ptxas -v {name}.cu: {line}", flush=True)
 
     # ---- 3. kernel against its plain version at Llama-3.1-8B decode shapes
     lens = [1, 16, 17, 32, 100, 1000, 2048, 3001]
@@ -1169,6 +1249,27 @@ def main() -> int:
               f"{' (bit-identical)' if same_bits(one, dec) else ''}",
               flush=True)
         del args, q1, kp, vp
+        for label, lens_set in verify_split_lens(dtype):
+            args = kernel_inputs(dtype, lens_set, seed=7, Q=SPEC_K + 1)
+            got = paged_verify(*args)
+            torch.cuda.synchronize()
+            err = check_close(f"{name} {label}", got,
+                              ref.paged_verify_ref(*args))
+            row = check_rows(f"{name} {label}", got, *args,
+                             plain=ref.paged_verify_ref)
+            plan, masked = split_note(args[0], args[1], args[3], args[4])
+            if label == "split edges" and not masked:
+                fail(f"{name} {label}: lens {lens_set} leave no fully "
+                     f"masked partial under the plan {plan}")
+            print(f"kernel check: {name} {label} B={len(lens_set)} "
+                  f"lens={lens_set if len(lens_set) < 10 else '...'}, "
+                  f"garbage tables: {plan}, {masked} fully masked "
+                  f"(sequence, split, candidate) partials: max|err|="
+                  f"{err:.3e} (tol {TOL[str(dtype)]}); "
+                  f"against fp32 per row {row:.3e} (tol "
+                  f"{ROW_RTOL[str(dtype)]})", flush=True)
+            del args, got
+        torch.cuda.empty_cache()
 
     copy_err = 0.0
     for dtype in (torch.bfloat16, torch.float32):
@@ -1434,16 +1535,20 @@ def main() -> int:
     vb_ms, vb_by = verify_bound(v_args[0], v_args[1], v_args[3], v_args[4])
     print(f"[{card}] paged_verify at the captured verify step "
           f"(B={v_args[0].shape[0]}, Q={v_args[0].shape[1]}, "
-          f"lens={v_args[4].tolist()}): kernel {vk_ms * 1e3:.1f} us "
-          f"({v_how}; CUDA events over back-to-back wrapper calls "
-          f"{vk_ev * 1e3:.1f} us), plain {vp_ms * 1e3:.1f} us, bound "
-          f"{vb_ms * 1e3:.2f} us ({vb_by}), {cfg.n_layers} launches per "
-          f"spec dispatch", flush=True)
+          f"NPG={v_args[3].shape[1]}, lens={v_args[4].tolist()}): "
+          f"{split_note(v_args[0], v_args[1], v_args[3], v_args[4])[0]}",
+          flush=True)
+    print(f"[{card}] paged_verify at the captured verify step: kernel "
+          f"{vk_ms * 1e3:.1f} us ({v_how}, split and combine; CUDA events "
+          f"over back-to-back wrapper calls {vk_ev * 1e3:.1f} us), plain "
+          f"{vp_ms * 1e3:.1f} us, bound {vb_ms * 1e3:.2f} us ({vb_by}), "
+          f"{cfg.n_layers} launches per spec dispatch", flush=True)
     big_v = kernel_inputs(torch.bfloat16, v_lens, seed=5, Q=SPEC_K + 1)
     vkb_ms, vkb_how = device_ms(lambda: paged_verify(*big_v))
     vpb_ms, _ = device_ms(lambda: ref.paged_verify_ref(*big_v), iters=10)
     vbb_ms, vbb_by = verify_bound(big_v[0], big_v[1], big_v[3], big_v[4])
-    print(f"[{card}] paged_verify bf16 Q={SPEC_K + 1} lens={v_lens}: kernel "
+    print(f"[{card}] paged_verify bf16 Q={SPEC_K + 1} lens={v_lens}: "
+          f"{split_note(big_v[0], big_v[1], big_v[3], big_v[4])[0]}; kernel "
           f"{vkb_ms * 1e3:.1f} us ({vkb_how}), plain {vpb_ms * 1e3:.1f} us, "
           f"bound {vbb_ms * 1e3:.2f} us ({vbb_by})", flush=True)
     del big_v
@@ -1590,6 +1695,18 @@ def decode_profile(eng, card, label, GenRequest, SamplingParams,
     for e in sorted(events, key=dev_us, reverse=True)[:8]:
         print(f"[{card}]   {dev_us(e) / 1e3 / steps:8.3f} ms/step "
               f"{e.count // steps:5d}/step  {e.key[:80]}", flush=True)
+    for kernel, keys in (("paged_verify (split + combine)",
+                          ("paged_verify", "split_combine")),
+                         ("paged_decode", ("paged_decode",))):
+        mine = [e for e in events if any(k in e.key for k in keys)]
+        if mine:
+            parts = ", ".join(
+                f"{re.search(r'(\w+)<', e.key).group(1)} "
+                f"{dev_us(e) / 1e3 / steps:.3f}" for e in mine)
+            print(f"[{card}]   {label}: {kernel} "
+                  f"{sum(map(dev_us, mine)) / 1e3 / steps:.3f} ms/step "
+                  f"({parts}) over {sum(e.count for e in mine) // steps} "
+                  f"kernel launches per step", flush=True)
     return 1e3 * wall, n / wall / steps
 
 

@@ -34,7 +34,8 @@
 // the G heads) and keeps one page's loads in flight, but it walks a
 // sequence's pages in order inside one block: B*K blocks (64 at B=8, K=8)
 // fill under half of the 132 SMs, and each page costs four barriers of
-// latency. Split-KV over pages (more blocks, a second combine pass), deeper
+// latency. Split-KV over pages (more blocks, and the second pass
+// `split_combine_kernel` of common.cuh, as paged_verify.cu takes it), deeper
 // cp.async/TMA pipelines and mma for the scores are the next steps.
 
 #include <cuda_bf16.h>
@@ -48,38 +49,6 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kParts = 4;            // threads per score
-constexpr float kNegInf = -2.0e38f;   // the JAX package's finite NEG_INF
-
-// The four 32-bit words of a 16-byte vector as fp32 values of type T:
-// four floats, or eight bf16 (low half first).
-__device__ __forceinline__ void unpack(uint32_t w, float* out, float) {
-  out[0] = __uint_as_float(w);
-}
-__device__ __forceinline__ void unpack(uint32_t w, float* out,
-                                       __nv_bfloat16) {
-  out[0] = __uint_as_float(w << 16);
-  out[1] = __uint_as_float(w & 0xffff0000u);
-}
-
-template <typename T>
-__device__ __forceinline__ void store_vec(const uint4& x, float* dst) {
-  constexpr int kPer = 4 / sizeof(T);      // values per 32-bit word
-  unpack(x.x, dst, T());
-  unpack(x.y, dst + kPer, T());
-  unpack(x.z, dst + 2 * kPer, T());
-  unpack(x.w, dst + 3 * kPer, T());
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
 
 // One page's K and V rows for one head, in flight in registers: 16-byte
 // vectors, at most kMaxVec of each per thread (page * hd * sizeof(T) <=
@@ -158,7 +127,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   int32_t* bt_s = reinterpret_cast<int32_t*>(a_s + G);  // (live pages,)
 
   const int len = lens[b];
-  const int n_live = min((len + page - 1) / page, npg);
+  const int n_live = live_pages(len, page, npg);
   // the G query heads of KV head kvh are rows kvh*G .. kvh*G+G-1 of q[b]
   const T* qb = q + ((size_t)b * H + (size_t)kvh * G) * hd;
   for (int e = tid; e < G * hd; e += kThreads) {

@@ -3,10 +3,15 @@
 `src/repro/kernels/paged_verify.py`: the multi-query target forward of
 draft-k/verify-1 speculative decoding.
 
-The wrapper checks what the kernel takes (`paged_decode.check_inputs`,
-shared with the decode kernel), allocates the output with `torch.empty`,
-launches on the current stream and raises if the launch failed.
-`paged_verify.launches` counts launches. The plain version is
+The kernel splits each sequence's live pages over several blocks and
+merges their partial softmaxes in a second pass. `split_plan` sizes the
+splits from the shapes and the card's SM count alone (never from
+`seq_lens`, whose values live on the device); `split_ranges` is the page range each split covers, the
+arithmetic the kernel repeats on the device. The wrapper checks what the
+kernel takes (`paged_decode.check_inputs`, shared with the decode kernel),
+allocates the output and the fp32 partials with `torch.empty`, launches
+both kernels on the current stream and raises if a launch failed.
+`paged_verify.launches` counts wrapper calls. The plain version is
 `ref.paged_verify_ref`; `ops.paged_verify` picks between them by the
 tensors' device.
 """
@@ -21,16 +26,52 @@ from repro_torch.kernels import build
 from repro_torch.kernels.paged_decode import (DTYPES, MAX_SMEM_BYTES,
                                               check_inputs)
 
+ROUND_SLOTS = 64                   # KV slots per round of a block, at most
+ROUND_BYTES = 16 * 1024            # bytes of one round's K (and V), at most
+BLOCKS_PER_SM = 4                  # split blocks per launch, at most, per SM
+
+
+def split_plan(B: int, K: int, npg: int, page: int, hd: int, itemsize: int,
+               sms: int) -> tuple[int, int, int]:
+    """(ppr, chunk, n_split) from shapes and the card's `sms` alone: a
+    block copies `ppr` pages per round (at most ROUND_SLOTS slots and
+    ROUND_BYTES of K), owns `chunk` pages (a multiple of ppr) and each
+    (sequence, KV head) gets `n_split` blocks, chunk * n_split >= npg.
+    chunk is the smallest that keeps B * K * n_split within BLOCKS_PER_SM *
+    sms."""
+    ppr = max(1, min(ROUND_SLOTS // page,
+                     ROUND_BYTES // (page * hd * itemsize)))
+    max_splits = max(1, BLOCKS_PER_SM * sms // max(1, B * K))
+    chunk = ppr * max(1, -(-npg // (ppr * max_splits)))
+    return ppr, chunk, max(1, -(-npg // chunk))
+
+
+def split_ranges(length: int, page: int, npg: int, chunk: int,
+                 n_split: int) -> list[tuple[int, int]]:
+    """The table entries [p0, p1) that each live split of a sequence of
+    `length` tokens reads, in split order: entries j < min(ceil(length /
+    page), npg) only. A split whose range starts at or past them does no
+    work, and the combine visits exactly the splits listed here."""
+    n_live = min(-(-length // page), npg)
+    return [(s * chunk, min((s + 1) * chunk, n_live))
+            for s in range(n_split) if s * chunk < n_live]
+
+
+@functools.cache
+def sm_count(device: torch.device) -> int:
+    """The number of SMs of the CUDA `device` (a property, no sync)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.load("paged_verify")
     fn = lib.paged_verify_launch
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
-                   + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
+                   + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     smem = lib.paged_verify_smem_bytes
-    smem.argtypes = [ctypes.c_int] * 6
+    smem.argtypes = [ctypes.c_int] * 8
     smem.restype = ctypes.c_size_t
     return lib
 
@@ -49,9 +90,12 @@ def paged_verify(q: torch.Tensor, k_pages: torch.Tensor,
                          f"{tuple(q.shape)}")
     B, Q, H, hd = q.shape
     page, K = k_pages.shape[1], k_pages.shape[2]
+    npg = block_table.shape[1]
+    ppr, chunk, n_split = split_plan(B, K, npg, page, hd, q.element_size(),
+                                     sm_count(q.device))
     lib = _lib()
-    smem = lib.paged_verify_smem_bytes(Q, H, K, hd, page,
-                                       block_table.shape[1])
+    smem = lib.paged_verify_smem_bytes(Q, H, K, hd, page, ppr, chunk,
+                                       q.element_size())
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"paged_verify kernel: Q={Q}, page={page}, hd={hd}, "
                          f"G={H // K} need {smem} B of shared memory "
@@ -59,12 +103,17 @@ def paged_verify(q: torch.Tensor, k_pages: torch.Tensor,
     out = torch.empty_like(q)
     if B == 0 or Q == 0:
         return out
+    R = H // K * Q
+    part_acc = torch.empty((B, K, n_split, R, hd), dtype=torch.float32,
+                           device=q.device)
+    part_ml = torch.empty((B, K, n_split, R, 2), dtype=torch.float32,
+                          device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.paged_verify_launch(
         DTYPES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
         v_pages.data_ptr(), block_table.data_ptr(), seq_lens.data_ptr(),
-        out.data_ptr(), B, Q, H, K, hd, page, block_table.shape[1],
-        hd ** -0.5, stream)
+        part_acc.data_ptr(), part_ml.data_ptr(), out.data_ptr(), B, Q, H, K,
+        hd, page, npg, ppr, chunk, n_split, hd ** -0.5, stream)
     if err != 0:
         raise RuntimeError(f"paged_verify kernel launch failed: CUDA error "
                            f"{err}")

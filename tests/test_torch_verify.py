@@ -4,7 +4,11 @@ interpret mode, on the sweep of `tests/test_kernels.py` in fp32 (2e-5) and
 bf16 (2e-2); Q=1 against the port's `paged_decode_ref`; causality within
 the candidates; garbage table entries past the ragged edge; the device
 dispatch of `ops.paged_verify` and the CUDA wrapper's refusal of CPU
-tensors."""
+tensors. The CUDA kernel's split-KV plan (`split_plan`, `split_ranges`):
+every live page is covered by exactly one split and no split reads a table
+entry past the ragged edge; a torch emulation of its partial-then-combine
+arithmetic against the oracle and the Pallas kernel, fully masked partials
+and garbage tables included."""
 from __future__ import annotations
 
 import jax.numpy as jnp
@@ -17,6 +21,9 @@ from repro.kernels.paged_verify import paged_verify as pallas_paged_verify
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.paged_verify import paged_verify as cuda_paged_verify
+from repro_torch.kernels.paged_verify import (BLOCKS_PER_SM, ROUND_BYTES,
+                                              ROUND_SLOTS, split_plan,
+                                              split_ranges)
 
 RNG = np.random.default_rng(42)
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -144,3 +151,151 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         cuda_paged_verify(*args)
     assert cuda_paged_verify.launches == before
+
+
+# --------------------------------------------------- the kernel's split plan
+
+@pytest.mark.parametrize("B,K,npg,page,hd,itemsize", [
+    (4, 8, 32, 16, 128, 2),      # the captured verify step, bf16
+    (4, 8, 32, 16, 128, 4),      # ... fp32
+    (8, 8, 188, 16, 128, 2),     # lens up to 3001
+    (1, 8, 1024, 16, 128, 2),    # one sequence over the full-width pool
+    (64, 8, 128, 16, 128, 4),    # more (sequence, head) pairs than blocks
+    (3, 2, 5, 8, 32, 4),
+    (2, 4, 7, 3, 8, 2),          # a page that does not divide a round
+    (1, 1, 3, 128, 32, 2),       # a page wider than a round
+    (2, 1, 1, 16, 256, 4),
+])
+@pytest.mark.parametrize("sms", [132, 114])    # H100 SXM, H100 PCIe
+def test_split_plan_covers_live_pages_once(B, K, npg, page, hd, itemsize,
+                                           sms):
+    """From the shapes alone: rounds within ROUND_SLOTS slots and
+    ROUND_BYTES of K (or one page), splits a whole number of rounds that
+    cover the table, and no more than BLOCKS_PER_SM blocks per SM unless
+    B*K alone is more. Then, for every length up to past the table's end, the live
+    splits cover the live pages [0, min(ceil(len/page), npg)) exactly once,
+    in order, and none reaches an entry past the ragged edge."""
+    ppr, chunk, n_split = split_plan(B, K, npg, page, hd, itemsize, sms)
+    assert ppr >= 1 and chunk % ppr == 0 and chunk * n_split >= npg
+    assert ppr * page <= max(ROUND_SLOTS, page)
+    assert ppr * page * hd * itemsize <= max(ROUND_BYTES,
+                                             page * hd * itemsize)
+    assert B * K * n_split <= max(BLOCKS_PER_SM * sms, B * K)
+    for length in range(1, npg * page + 2 * page):
+        n_live = min(-(-length // page), npg)
+        ranges = split_ranges(length, page, npg, chunk, n_split)
+        covered = [j for p0, p1 in ranges for j in range(p0, p1)]
+        assert covered == list(range(n_live))
+        assert all(p1 > p0 and p1 <= -(-length // page) for p0, p1 in ranges)
+
+
+def _split_emulation(q, kp, vp, bt, lens, chunk, n_split):
+    """The split kernel's arithmetic, in fp32 on the inputs upcast: for each
+    (sequence, KV head, live split) the partial (m, l, acc) of its G*Q rows
+    (row g*Q + qi) over the split's positions, each row masked at its own
+    causal limit with the finite -2e38, then the combine's merge in split
+    order, M starting from split 0's m. A split holding no position that a
+    row sees leaves that row m = -2e38, l = its slot count, acc = its sum
+    of v, weighted by exp(-2e38 - M) = 0."""
+    B, Q, H, hd = q.shape
+    _, page, K, _ = kp.shape
+    G, npg = H // K, bt.shape[1]
+    R = G * Q
+    qf = q.float().transpose(1, 2).reshape(B, K, R, hd)
+    kf, vf = kp.float(), vp.float()
+    qi = torch.arange(R) % Q
+    out = torch.empty(B, K, R, hd)
+    for b in range(B):
+        n = int(lens[b])
+        limit = n - Q + qi + 1                                     # (R,)
+        parts = []
+        for p0, p1 in split_ranges(n, page, npg, chunk, n_split):
+            pos = torch.arange(p0 * page, min(p1 * page, n))
+            pages = bt[b, pos // page].long()
+            k = kf[pages, pos % page]                              # (n,K,hd)
+            v = vf[pages, pos % page]
+            s = torch.einsum("krh,nkh->krn", qf[b], k) * hd ** -0.5
+            s = torch.where(pos[None, None, :] < limit[None, :, None], s,
+                            tref.NEG_INF)
+            m = s.amax(-1)                                          # (K,R)
+            p = torch.exp(s - m[..., None])
+            parts.append((m, p.sum(-1), torch.einsum("krn,nkh->krh", p, v)))
+        M = parts[0][0]
+        for m, _, _ in parts[1:]:
+            M = torch.maximum(M, m)
+        num, den = torch.zeros(K, R, hd), torch.zeros(K, R)
+        for m, l, acc in parts:
+            w = torch.exp(m - M)
+            num += w[..., None] * acc
+            den += w * l
+        out[b] = num / den.clamp_min(1e-30)[..., None]
+    return out.reshape(B, K, G, Q, hd).permute(0, 3, 1, 2, 4).reshape(
+        B, Q, H, hd).to(q.dtype)
+
+
+@pytest.mark.parametrize("B,H,K,hd,page,Ptot,npg,Q", [
+    (2, 4, 4, 32, 8, 16, 4, 2),
+    (3, 8, 2, 64, 16, 32, 8, 4),   # GQA, k_spec=3
+    (1, 4, 1, 32, 8, 8, 2, 3),     # MQA
+])
+@pytest.mark.parametrize("chunk", [1, 2, None])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_split_emulation_matches_oracle(B, H, K, hd, page, Ptot, npg, Q,
+                                        chunk, dtype):
+    """Partials of one page, of two, and of the plan's own size, merged by
+    the combine, equal the plain version at the kernels' tolerance; the
+    tables past every ragged edge hold arbitrary int32."""
+    args = _torch(_inputs(B, H, K, hd, page, Ptot, npg, Q, poison=True),
+                  dtype)
+    if chunk is None:
+        _, chunk, n_split = split_plan(B, K, npg, page, hd,
+                                       args[0].element_size(), 132)
+    else:
+        n_split = -(-npg // chunk)
+    got = _split_emulation(*args, chunk, n_split)
+    want = tref.paged_verify_ref(*args)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    tol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("lens,page,npg", [
+    ([4, 4], 2, 3),          # len = Q: the candidates alone, over two pages
+    ([5, 4], 1, 6),          # ... one slot per page
+    ([13, 9], 4, 4),         # the last split holds candidates only
+    ([4, 5, 6, 7], 4, 2),    # ... and len = Q .. Q + 3
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_split_emulation_fully_masked_partials(lens, page, npg, dtype):
+    """One page per split, Q = 4: splits that hold only positions past some
+    row's causal limit leave that row a fully masked partial (m = -2e38);
+    the combine gives it weight 0, and the result is the plain version's,
+    with garbage past every ragged edge."""
+    Q = 4
+    args = _torch(_inputs(len(lens), 8, 2, 32, page, 16, npg, Q, lens=lens,
+                          poison=True), dtype)
+    masked = 0
+    for n in lens:
+        for p0, _ in split_ranges(n, page, npg, 1, npg):
+            masked += sum(p0 * page >= n - Q + qi + 1 for qi in range(Q))
+    assert masked > 0                     # the case under test occurs
+    got = _split_emulation(*args, 1, npg)
+    tol = TOL[dtype]
+    torch.testing.assert_close(got.float(),
+                               tref.paged_verify_ref(*args).float(),
+                               atol=tol, rtol=tol)
+
+
+def test_split_emulation_matches_pallas_kernel():
+    """The emulation against the JAX package's Pallas kernel in interpret
+    mode: splits of one page, a fully masked last split (len 13 = three
+    pages and one candidate) and garbage tables, fp32."""
+    q, kp, vp, bt, lens = _inputs(3, 8, 2, 32, 4, 24, 5, 4,
+                                  lens=[13, 4, 20], poison=True)
+    j_args = [jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+              jnp.asarray(bt), jnp.asarray(lens)]
+    want = np.asarray(pallas_paged_verify(*j_args, interpret=True),
+                      np.float32)
+    got = _split_emulation(*_torch((q, kp, vp, bt, lens), "float32"), 1, 5)
+    np.testing.assert_allclose(got.numpy(), want, atol=TOL["float32"],
+                               rtol=TOL["float32"])
