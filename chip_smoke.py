@@ -8,10 +8,14 @@ Phases, in order; any failure exits non-zero:
   2. build the CUDA kernels from `src/repro_torch/kernels/csrc` (one nvcc
      per source, all started together) and print the build seconds, and
      `nvcc -Xptxas -v`'s registers, spills and stack of each kernel of
-     `flash_attention.cu` and `paged_verify.cu`;
+     `flash_attention.cu`, `paged_verify.cu`, `paged_decode.cu` and
+     `ssd_scan.cu`;
   3. hold each kernel against its plain PyTorch version on the card:
      paged_decode at Llama-3.1-8B decode shapes, ragged lengths and garbage
-     block tables; paged_verify at Llama-3.1-8B verify shapes (Q=4) on a
+     block tables: lens from 1 to 3001 (B=8), lens at its split plan's
+     edges (a split boundary +-1 at B=8 and, on a table as wide, at B=1)
+     and one sequence over the whole pool (NPG 1024), each with the plan
+     printed; paged_verify at Llama-3.1-8B verify shapes (Q=4) on a
      layer of the full-width pool, with garbage tables: lens from Q to 3001
      across page edges (B=8), lens at its split plan's edges (len = Q, a
      split boundary +-1, last splits that hold candidates only, so some
@@ -51,9 +55,12 @@ Phases, in order; any failure exits non-zero:
      bound, its plain version's and its library call's time (for
      flash_attention, scaled_dot_product_attention), profiles of
      steady plain and speculative decode steps at batch 8, the host
-     tier's D2H / H2D rates and a pull's time per MB, paged_verify's split
-     plan and its kernels' time per speculative step) with the card's name
-     and power limit,
+     tier's D2H / H2D rates and a pull's time per MB, the split plans of
+     paged_decode and paged_verify, their split and combine kernels apart,
+     per call and per step, and ssd_scan's four passes apart beside its
+     bounds at the 3xTF32 tensor-core peak, its products' form, and for
+     reference the fp32 FMA peak) with the card's
+     name and power limit,
      the kernel table as one JSON line, and last the result line
      {"ok": true, "device": {...}}.
 
@@ -77,11 +84,18 @@ MODEL = "llama31-8b"               # the paper's serving model, full width
 SMALL = "llama31-8b-reduced"       # the fp32 model of the CPU token check
 KERNELS = ("paged_decode", "paged_verify", "page_copy", "flash_attention",
            "ssd_scan")                                 # csrc/<name>.cu
-PTXAS = ("flash_attention", "paged_verify")    # sources whose -Xptxas -v
-                                               # report is printed
+PTXAS = ("flash_attention", "paged_verify", "paged_decode",
+         "ssd_scan")                   # sources whose -Xptxas -v report is
+                                       # printed
 SPEC_K = 3                         # drafts per speculative step
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
+# ssd_scan's fp32 work: first the peak of the form the kernel runs its
+# products in, 3xTF32 on the tensor cores (three TF32 products for one),
+# which is its bound; second, printed for reference only, the fp32 peak
+# outside the tensor cores (the card's rate for the type)
+SSD_PEAKS = (("3xTF32 tensor-core", 495e12 / 3),
+             ("fp32 FMA", PEAK_FLOPS["torch.float32"]))
 TOL = {"torch.bfloat16": 2e-2, "torch.float32": 2e-5}
 # per (sequence, head) row against the plain version in fp32: two bf16
 # ulps at the row's largest value; fp32 summation order alone for fp32
@@ -171,6 +185,24 @@ def device_ms(fn, iters: int = 50, warmup: int = 5) -> tuple[float, str]:
     if us:
         return us / 1e3 / iters, "profiler"
     return cuda_ms(fn, iters, warmup=0), "events"
+
+
+def kernel_parts(fn, iters: int = 10) -> dict:
+    """Device ms per call of each kernel fn launches (torch.profiler),
+    keyed by the kernel's name without its namespace and arguments."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    parts = {}
+    for e in device_events(prof):
+        m = re.search(r"(\w+)(<[^>]*>)?\(", e.key)
+        parts[m.group(1) if m else e.key] = dev_us(e) / 1e3 / iters
+    return parts
 
 
 def roofline(nbytes: float, flops: float, peak: float) -> tuple[float, str]:
@@ -263,16 +295,17 @@ def paged_bound(q, k_pages, table, lens) -> tuple[float, str]:
     return roofline(nbytes, flops, PEAK_FLOPS[str(q.dtype)])
 
 
-def kernel_inputs(dtype, lens, seed: int, Q=None):
+def kernel_inputs(dtype, lens, seed: int, Q=None, npg=None):
     """Llama-3.1-8B attention shapes: H=32, K=8, hd=128, page=16, with
     every table entry past a sequence's ragged edge set to garbage (-1 or
     2**31-1). Decode (Q None): q (B, H, hd) over a pool just large enough;
     verify: q (B, Q, H, hd) over one layer of the full-width pool, lens
-    counting the Q candidates."""
+    counting the Q candidates. The table is `npg` entries wide, by default
+    the longest sequence's live pages."""
     import torch
     g = torch.Generator(device=DEVICE).manual_seed(seed)
     B, H, K, hd, page = len(lens), 32, 8, 128, 16
-    npg = max(-(-n // page) for n in lens)
+    npg = npg or max(-(-n // page) for n in lens)
     n_pages = (sum(-(-n // page) for n in lens) + 8 if Q is None
                else POOL[1])
     q = torch.randn((B, H, hd) if Q is None else (B, Q, H, hd),
@@ -313,20 +346,23 @@ def verify_bound(q, k_pages, table, lens) -> tuple[float, str]:
 
 
 def split_note(q, k_pages, table, lens) -> tuple[str, int]:
-    """paged_verify's split plan for these inputs, as text with the blocks
-    it launches and those that find live pages, and how many (sequence,
+    """The split plan of the paged kernel these inputs go to (decode for q
+    (B, H, hd), verify for q (B, Q, H, hd)), as text with the blocks it
+    launches and those that find live pages, and how many (sequence,
     split, candidate) partials hold no position the candidate sees (fully
-    masked: the combine's weight-0 case)."""
-    from repro_torch.kernels.paged_verify import (sm_count, split_plan,
-                                                  split_ranges)
-    B, Q, H, hd = q.shape
+    masked: the combine's weight-0 case; none at Q = 1)."""
+    from repro_torch.kernels import paged_decode, paged_verify
+    kern = paged_decode if q.dim() == 3 else paged_verify
+    B, (H, hd) = q.shape[0], q.shape[-2:]
+    Q = 1 if q.dim() == 3 else q.shape[1]
     _, page, K, _ = k_pages.shape
     npg = table.shape[1]
-    ppr, chunk, n_split = split_plan(B, K, npg, page, hd, q.element_size(),
-                                     sm_count(q.device))
+    ppr, chunk, n_split = kern.split_plan(B, K, npg, page, hd,
+                                          q.element_size(),
+                                          paged_decode.sm_count(q.device))
     live = masked = 0
     for n in lens.tolist():
-        ranges = split_ranges(n, page, npg, chunk, n_split)
+        ranges = paged_decode.split_ranges(n, page, npg, chunk, n_split)
         live += len(ranges)
         masked += sum(p0 * page >= n - Q + qi + 1 for p0, _ in ranges
                       for qi in range(Q))
@@ -343,7 +379,8 @@ def verify_split_lens(dtype) -> list[tuple[str, list[int]]]:
     (which sets NPG); and one sequence over every page of the pool (NPG
     1024)."""
     import torch
-    from repro_torch.kernels.paged_verify import sm_count, split_plan
+    from repro_torch.kernels.paged_decode import sm_count
+    from repro_torch.kernels.paged_verify import split_plan
     Q, page = SPEC_K + 1, POOL[2]
     E = split_plan(8, POOL[3], -(-3001 // page), page, POOL[4],
                    torch.empty((), dtype=dtype).element_size(),
@@ -351,6 +388,28 @@ def verify_split_lens(dtype) -> list[tuple[str, list[int]]]:
     return [("split edges", [Q, E - 1, E, E + 1, E + 2, E + 3, 2 * E + 1,
                              3001]),
             ("one sequence over the whole pool", [page * POOL[1]])]
+
+
+def decode_split_lens(dtype) -> list[tuple[str, list[int], int]]:
+    """(label, lens, table width) that reach paged_decode's split machinery
+    at phase 3's shapes: B=8 with lens up to 3001 (NPG 188) at the edges of
+    its plan, E slots per split: len = 1, E - 1, E, E + 1, 2E - 1, 2E,
+    2E + 1 beside 3001; B=1 on a table 188 wide at its own plan's edges
+    E1 - 1, E1, E1 + 1; and one sequence over every page of the full-width
+    pool (NPG 1024)."""
+    import torch
+    from repro_torch.kernels.paged_decode import sm_count, split_plan
+    page, K, hd = POOL[2], POOL[3], POOL[4]
+    npg = -(-3001 // page)
+    it = torch.empty((), dtype=dtype).element_size()
+    sms = sm_count(torch.device(DEVICE, 0))
+    E = split_plan(8, K, npg, page, hd, it, sms)[1] * page
+    E1 = split_plan(1, K, npg, page, hd, it, sms)[1] * page
+    return ([("split edges, B=8", [1, E - 1, E, E + 1, 2 * E - 1, 2 * E,
+                                   2 * E + 1, 3001], npg)]
+            + [("split edge, B=1", [n], npg) for n in (E1 - 1, E1, E1 + 1)]
+            + [("one sequence over the whole pool", [page * POOL[1]],
+                POOL[1])])
 
 
 def flash_inputs(B, H, K, S, T, hd, dtype, seed: int):
@@ -401,20 +460,42 @@ def check_ssd(name: str, got, want) -> float:
     return check_close(name, got, want, atol=SSD_ATOL, rtol=SSD_RTOL)
 
 
-def ssd_bound(x, B_, chunk: int) -> tuple[float, str]:
+def ssd_bound(x, B_, chunk: int,
+              peak: float = SSD_PEAKS[0][1]) -> tuple[float, str]:
     """Least time for one SSD scan call: every input read once and y
     written once (fp32) over the HBM rate, against the flops the scan
-    itself needs, whatever the chunking, over the fp32 peak outside the
-    tensor cores: per (token, head) the state update dt x B^T and the
-    readout C h, N x P multiply-adds each (4 N P flops), plus the state's
-    decay once per chunk of `chunk` (N P per chunk and head). The intra-chunk
-    products of the chunked form (C B^T and the masked M x) are overhead of
-    that form and not counted. Returns (ms, "bytes" | "operations")."""
+    itself needs, whatever the chunking, over `peak`: per (token, head)
+    the state update dt x B^T and the readout C h, N x P multiply-adds
+    each (4 N P flops), plus the state's decay once per chunk of `chunk`
+    (N P per chunk and head). The intra-chunk products of the chunked form
+    (C B^T and the masked M x) are overhead of that form and not counted.
+    `peak` is that of the form the kernel runs its products in, 3xTF32,
+    unless given (SSD_PEAKS). Returns (ms, "bytes" | "operations")."""
     Bb, H, S, P = x.shape
     G, N = B_.shape[1], B_.shape[3]
     nbytes = 4 * (2 * Bb * H * S * P + Bb * H * S + H + 2 * Bb * G * S * N)
     flops = Bb * H * N * P * (4 * S + S // chunk)
-    return roofline(nbytes, flops, PEAK_FLOPS["torch.float32"])
+    return roofline(nbytes, flops, peak)
+
+
+def ssd_chunked_flops(x, B_, chunk: int) -> float:
+    """The flops the kernel's chunked form does (its four passes' products,
+    as tiled): C B^T per (batch, group, chunk) on the tiles on or below
+    the diagonal, each chunk's state (2 N P per token and head), the state
+    passing (2 N P per chunk and head) and the output: the state's part (2
+    N P per token and head, none in chunk 0) and the masked (C B^T o L) x
+    on the tiles on or below the diagonal. The achieved rate is this over
+    the kernel's time."""
+    Bb, H, S, P = x.shape
+    G, N = B_.shape[1], B_.shape[3]
+    nc, nt = S // chunk, -(-chunk // 64)
+    pairs = nt * (nt + 1) // 2                  # 64 x 64 tiles, J <= I
+    tile = min(64, chunk) ** 2                  # elements of one tile
+    cb = 2 * Bb * G * nc * pairs * tile * N
+    state = 2 * Bb * H * S * N * P
+    passing = 2 * Bb * H * nc * N * P
+    out = 2 * Bb * H * (S - chunk) * N * P + 2 * Bb * H * nc * pairs * tile * P
+    return float(cb + state + passing + out)
 
 
 def dense_kernels_phase() -> dict:
@@ -429,8 +510,9 @@ def dense_kernels_phase() -> dict:
     kernel's domain, which the wrapper refuses); then tests/test_kernels.py's
     small shapes (hd 16, 32, 64), all in bf16 (2e-2) and fp32 (2e-5).
     ssd_scan at Mamba2-780m's widths (H 48, P 64, N 128, G 1), B=2,
-    S=2048, at chunk 256 (its config) and 128 (the
-    kernel's default), tests/test_kernels.py's three sweeps and its chunk
+    S=2048, at chunk 256 (its config) and 128 (the kernel's default), at
+    its widths with a ~ -U(0.5, 12) so that the cumsum passes -88 inside a
+    chunk, tests/test_kernels.py's three sweeps and its chunk
     invariance (chunks 16, 32, 48, 96 on one input, each against the plain
     scan and against chunk 16's output), at atol 5e-5 / rtol 5e-4. Counts
     the launches of this path. Returns the errors, the launches and the
@@ -511,6 +593,20 @@ def dense_kernels_phase() -> dict:
                         ref.ssd_scan_ref(*sargs, chunk=chunk))
         print(f"kernel check: ssd_scan (B,H,S,P,G,N,chunk)="
               f"{(B, h, S, p, g, n, chunk)}: max|err|={err:.3e}", flush=True)
+    # a ~ -U(0.5, 12): the cumsum of dt * a passes -88 inside a chunk,
+    # where exp(cum_i) * exp(-cum_j) would overflow fp32
+    sargs = ssd_inputs(1, 8, 512, P, G, N, seed=35, a_hi=12.0)
+    chunks = (sargs[1] * sargs[2][None, :, None]).reshape(1, 8, 2, 256)
+    deepest = float(chunks.cumsum(-1).min())
+    if not deepest < -88:
+        fail(f"ssd_scan deep-decay case: cumsum reaches only {deepest:.1f}")
+    got = ops.ssd_scan(*sargs, chunk=256)
+    calls["ssd"] += 1
+    err = check_ssd("ssd_scan deep decay", got,
+                    ref.ssd_scan_ref(*sargs, chunk=256))
+    print(f"kernel check: ssd_scan B=1 H=8 S=512 P={P} G={G} N={N} "
+          f"chunk=256, a ~ -U(0.5, 12) (cumsum down to "
+          f"{deepest:.1f} inside a chunk): max|err|={err:.3e}", flush=True)
     sargs = ssd_inputs(1, 2, 96, 8, 1, 16, seed=34, a_hi=2.0)
     want = ref.ssd_scan_ref(*sargs, chunk=16)
     outs = []
@@ -578,15 +674,26 @@ def time_dense_kernels(card: str, dense: dict) -> dict:
     args = dense["ssd_args"]
     pl, _ = device_ms(lambda: ref.ssd_scan_ref(*args, chunk=chunk), iters=2,
                       warmup=1)
-    # one bound for both timings: the scan's work at the configured chunk
-    b_ms, b_by = ssd_bound(args[0], args[3], chunk)
+    # one bound for both timings: the scan's work at the configured chunk,
+    # at each peak of SSD_PEAKS; the kernels line takes the first, the
+    # peak of the kernel's own form (3xTF32)
+    bounds = [(name, pk, *ssd_bound(args[0], args[3], chunk, pk))
+              for name, pk in SSD_PEAKS]
+    b_ms, b_by = bounds[0][2:]
     for c in (128, chunk):
         kern, how = device_ms(lambda: ssd_scan(*args, chunk=c), iters=20)
+        passes = kernel_parts(lambda: ssd_scan(*args, chunk=c), iters=10)
+        gflop = ssd_chunked_flops(args[0], args[3], c) / 1e9
         print(f"[{card}] ssd_scan B=2 H={sH} S=2048 P={P} G={G} N={N} "
-              f"chunk={c}: kernel {kern * 1e3:.1f} us ({how}), plain "
-              f"(token-by-token scan) {pl * 1e3:.1f} us, bound "
-              f"{b_ms * 1e3:.2f} us ({b_by}; roofline share "
-              f"{100 * b_ms / kern:.1f}%)", flush=True)
+              f"chunk={c}: kernel {kern * 1e3:.1f} us ({how}; "
+              + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in passes.items())
+              + f" us), plain (token-by-token scan) {pl * 1e3:.1f} us, "
+              + "; ".join(f"bound {ms * 1e3:.2f} us ({by} at the {name} peak, "
+                          f"{pk / 1e12:.0f} TFLOP/s; roofline share "
+                          f"{100 * ms / kern:.1f}%)"
+                          for name, pk, ms, by in bounds)
+              + f"; the chunked form's products {gflop:.2f} GFLOP = "
+              f"{gflop / kern:.1f} TFLOP/s", flush=True)
     # the kernels line reports the configured chunk, timed last
     rows["ssd"] = dict(ms=kern, plain_ms=pl, bound_ms=b_ms, bound_by=b_by)
     return rows
@@ -1226,6 +1333,25 @@ def main() -> int:
         print(f"kernel check: paged_decode {str(dtype)[6:]} lens={lens} "
               f"max|err|={err:.3e} (tol {TOL[str(dtype)]}); against fp32 "
               f"per row {row:.3e} (tol {ROW_RTOL[str(dtype)]})", flush=True)
+        del q, kp, vp
+        for label, lens_set, npg in decode_split_lens(dtype):
+            name = f"paged_decode {str(dtype)[6:]} {label}"
+            args = kernel_inputs(dtype, lens_set, seed=8, npg=npg,
+                                 Q=1 if npg == POOL[1] else None)
+            if npg == POOL[1]:             # one layer of the full pool
+                args = (args[0][:, 0].contiguous(), *args[1:])
+            got = paged_decode(*args)
+            torch.cuda.synchronize()
+            err = check_close(name, got, ref.paged_decode_ref(*args))
+            row = check_rows(name, got, *args)
+            plan = split_note(args[0], args[1], args[3], args[4])[0]
+            print(f"kernel check: {name} lens={lens_set}, NPG {npg}, garbage "
+                  f"tables: {plan}: max|err|={err:.3e} (tol "
+                  f"{TOL[str(dtype)]}); against "
+                  f"fp32 per row {row:.3e} (tol {ROW_RTOL[str(dtype)]})",
+                  flush=True)
+            del args, got
+        torch.cuda.empty_cache()
 
     v_lens = [SPEC_K + 1, 16, 17, 32, 33, 100, 1000, 3001]
     for dtype in (torch.bfloat16, torch.float32):
@@ -1508,26 +1634,36 @@ def main() -> int:
     p_dev, _ = device_ms(lambda: ref.paged_decode_ref(q, kp, vp, table, ln),
                          iters=20)
     b_ms, b_by = paged_bound(q, kp, table, ln)
+    k_parts = kernel_parts(lambda: paged_decode(q, kp, vp, table, ln))
     print(f"[{card}] engine {cfg.name} bf16 page=16 max_batch=8: prefill "
           f"{pre_tok_s:.1f} tok/s ({prefilled} uncached tokens in "
           f"{len(prefill_s)} rounds), decode {dec_tok_s:.1f} tok/s, median "
           f"decode step {step_ms:.2f} ms", flush=True)
     print(f"[{card}] paged_decode at the captured step (B={q.shape[0]}, "
+          f"NPG={table.shape[1]}, lens={ln.tolist()}): "
+          f"{split_note(q, kp, table, ln)[0]}", flush=True)
+    print(f"[{card}] paged_decode at the captured step (B={q.shape[0]}, "
           f"lens={ln.tolist()}): kernel {k_ms * 1e3:.1f} us, plain "
           f"{p_ms * 1e3:.1f} us (CUDA events over back-to-back calls; "
           f"device time: kernel {k_dev * 1e3:.1f} us, plain "
-          f"{p_dev * 1e3:.1f} us), bound {b_ms * 1e3:.2f} us ({b_by}), "
+          f"{p_dev * 1e3:.1f} us; split and combine "
+          + ", ".join(f"{k} {v * 1e3:.2f}" for k, v in k_parts.items())
+          + f" us), bound {b_ms * 1e3:.2f} us ({b_by}), "
           f"{launches // len(decode_s)} launches per decode step", flush=True)
     big = kernel_inputs(torch.bfloat16, lens, seed=2)
     kb_ms = cuda_ms(lambda: paged_decode(*big))
     pb_ms = cuda_ms(lambda: ref.paged_decode_ref(*big), iters=10)
     kb_dev, _ = device_ms(lambda: paged_decode(*big))
+    kb_parts = kernel_parts(lambda: paged_decode(*big))
     pb_dev, _ = device_ms(lambda: ref.paged_decode_ref(*big), iters=10)
     bb_ms, _ = paged_bound(big[0], big[1], big[3], big[4])
-    print(f"[{card}] paged_decode bf16 lens={lens}: kernel "
+    print(f"[{card}] paged_decode bf16 lens={lens}: "
+          f"{split_note(big[0], big[1], big[3], big[4])[0]}; kernel "
           f"{kb_ms * 1e3:.1f} us, plain {pb_ms * 1e3:.1f} us (events; "
-          f"device time: kernel {kb_dev * 1e3:.1f} us, plain "
-          f"{pb_dev * 1e3:.1f} us), bound {bb_ms * 1e3:.2f} us", flush=True)
+          f"device time: kernel {kb_dev * 1e3:.1f} us ("
+          + ", ".join(f"{k} {v * 1e3:.2f}" for k, v in kb_parts.items())
+          + f"), plain {pb_dev * 1e3:.1f} us), bound {bb_ms * 1e3:.2f} us",
+          flush=True)
     # paged_verify at the captured verify step and at the phase 3 lens
     vk_ms, v_how = device_ms(lambda: paged_verify(*v_args))
     vk_ev = cuda_ms(lambda: paged_verify(*v_args))
@@ -1695,10 +1831,13 @@ def decode_profile(eng, card, label, GenRequest, SamplingParams,
     for e in sorted(events, key=dev_us, reverse=True)[:8]:
         print(f"[{card}]   {dev_us(e) / 1e3 / steps:8.3f} ms/step "
               f"{e.count // steps:5d}/step  {e.key[:80]}", flush=True)
+    # the combine is one kernel template for both: Q = 1 fixed (decode's)
+    # or Q at run time (verify's)
     for kernel, keys in (("paged_verify (split + combine)",
-                          ("paged_verify", "split_combine")),
-                         ("paged_decode", ("paged_decode",))):
-        mine = [e for e in events if any(k in e.key for k in keys)]
+                          r"paged_verify|split_combine_kernel<[^>]*false>"),
+                         ("paged_decode (split + combine)",
+                          r"paged_decode|split_combine_kernel<[^>]*true>")):
+        mine = [e for e in events if re.search(keys, e.key)]
         if mine:
             parts = ", ".join(
                 f"{re.search(r'(\w+)<', e.key).group(1)} "

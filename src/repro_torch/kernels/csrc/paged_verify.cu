@@ -338,14 +338,8 @@ int launch(const void* q, const void* k_pages, const void* v_pages,
       scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const size_t n_out = (size_t)B * Q * H * hd;
-  split_combine_kernel<T>
-      <<<(unsigned)((n_out + kCombineThreads - 1) / kCombineThreads),
-         kCombineThreads, 0, stream>>>(
-          static_cast<const float*>(part_acc),
-          static_cast<const float*>(part_ml),
-          static_cast<const int32_t*>(lens), static_cast<T*>(out), B, Q, H,
-          K, hd, page, npg, chunk, n_split);
+  launch_split_combine<T, false>(part_acc, part_ml, lens, out, B, Q, H, K, hd,
+                                page, npg, chunk, n_split, stream);
   return (int)cudaGetLastError();
 }
 

@@ -4,13 +4,15 @@
 draft-k/verify-1 speculative decoding.
 
 The kernel splits each sequence's live pages over several blocks and
-merges their partial softmaxes in a second pass. `split_plan` sizes the
-splits from the shapes and the card's SM count alone (never from
-`seq_lens`, whose values live on the device); `split_ranges` is the page range each split covers, the
-arithmetic the kernel repeats on the device. The wrapper checks what the
-kernel takes (`paged_decode.check_inputs`, shared with the decode kernel),
-allocates the output and the fp32 partials with `torch.empty`, launches
-both kernels on the current stream and raises if a launch failed.
+merges their partial softmaxes in a second pass. `split_plan` is the plan
+shared with the decode kernel (`paged_decode.split_plan`: from the shapes
+and the card's SM count alone, never from `seq_lens`, whose values live on
+the device) at verify's limits; `split_ranges` is the page range each
+split covers, the arithmetic the kernel repeats on the device. The wrapper
+checks what the kernel takes (`paged_decode.check_inputs`, shared with the
+decode kernel), allocates the output and the fp32 partials with
+`torch.empty`, launches both kernels on the current stream and raises if
+a launch failed.
 `paged_verify.launches` counts wrapper calls. The plain version is
 `ref.paged_verify_ref`; `ops.paged_verify` picks between them by the
 tensors' device.
@@ -24,43 +26,19 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.paged_decode import (DTYPES, MAX_SMEM_BYTES,
-                                              check_inputs)
+                                              check_inputs, sm_count,
+                                              split_ranges)
+from repro_torch.kernels.paged_decode import split_plan as _shared_plan
 
 ROUND_SLOTS = 64                   # KV slots per round of a block, at most
 ROUND_BYTES = 16 * 1024            # bytes of one round's K (and V), at most
 BLOCKS_PER_SM = 4                  # split blocks per launch, at most, per SM
 
 
-def split_plan(B: int, K: int, npg: int, page: int, hd: int, itemsize: int,
-               sms: int) -> tuple[int, int, int]:
-    """(ppr, chunk, n_split) from shapes and the card's `sms` alone: a
-    block copies `ppr` pages per round (at most ROUND_SLOTS slots and
-    ROUND_BYTES of K), owns `chunk` pages (a multiple of ppr) and each
-    (sequence, KV head) gets `n_split` blocks, chunk * n_split >= npg.
-    chunk is the smallest that keeps B * K * n_split within BLOCKS_PER_SM *
-    sms."""
-    ppr = max(1, min(ROUND_SLOTS // page,
-                     ROUND_BYTES // (page * hd * itemsize)))
-    max_splits = max(1, BLOCKS_PER_SM * sms // max(1, B * K))
-    chunk = ppr * max(1, -(-npg // (ppr * max_splits)))
-    return ppr, chunk, max(1, -(-npg // chunk))
-
-
-def split_ranges(length: int, page: int, npg: int, chunk: int,
-                 n_split: int) -> list[tuple[int, int]]:
-    """The table entries [p0, p1) that each live split of a sequence of
-    `length` tokens reads, in split order: entries j < min(ceil(length /
-    page), npg) only. A split whose range starts at or past them does no
-    work, and the combine visits exactly the splits listed here."""
-    n_live = min(-(-length // page), npg)
-    return [(s * chunk, min((s + 1) * chunk, n_live))
-            for s in range(n_split) if s * chunk < n_live]
-
-
-@functools.cache
-def sm_count(device: torch.device) -> int:
-    """The number of SMs of the CUDA `device` (a property, no sync)."""
-    return torch.cuda.get_device_properties(device).multi_processor_count
+# paged_verify's plan: the shared split plan at verify's limits
+split_plan = functools.partial(_shared_plan, round_slots=ROUND_SLOTS,
+                               round_bytes=ROUND_BYTES,
+                               blocks_per_sm=BLOCKS_PER_SM)
 
 
 @functools.cache

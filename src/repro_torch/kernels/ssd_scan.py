@@ -1,16 +1,19 @@
-"""Wrapper of the hand-written CUDA Mamba2 SSD scan kernel
-(`csrc/ssd_scan.cu`), the port of the TPU kernel `ssd_scan` in
-`src/repro/kernels/ssd_scan.py`: the chunked scan with a zero initial
-state.
+"""Wrapper of the hand-written CUDA Mamba2 SSD scan (`csrc/ssd_scan.cu`),
+the port of the TPU kernel `ssd_scan` in `src/repro/kernels/ssd_scan.py`:
+the chunked scan with a zero initial state, as four chunk-parallel passes
+tied by global memory (C B^T once per group and chunk, each chunk's own
+state, the state passing in chunk order, each chunk's output).
 
 `check_inputs` takes the JAX kernel's domain (S % chunk == 0, H % G == 0,
-fp32 throughout) and the kernel's own (P <= 128; contiguous, one CUDA
-device), and raises `ValueError` outside it before anything is built; the
-wrapper raises it too when P, N and chunk need more shared memory than a
-block has. It allocates y with `torch.empty`, launches on the current
-stream and raises if the launch failed. `ssd_scan.launches` counts
-launches. The plain version is `ref.ssd_scan_ref`; `ops.ssd_scan` picks
-between them by the tensors' device.
+fp32 throughout) and the port's (P <= 128; contiguous, one CUDA device),
+and raises `ValueError` outside it before anything is built; the wrapper
+raises it too when a chunk needs more shared memory than a block has. It
+allocates y and the passes' fp32 scratch (C B^T per group and chunk, a
+state per head and chunk padded to a multiple of 4 floats, the cumsum of
+dt * a) with `torch.empty`, launches the passes on the current stream and
+raises if a launch failed. `ssd_scan.launches` counts wrapper calls. The
+plain version is `ref.ssd_scan_ref`; `ops.ssd_scan` picks between them by
+the tensors' device.
 """
 from __future__ import annotations
 
@@ -22,18 +25,18 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.paged_decode import MAX_SMEM_BYTES
 
-MAX_P = 128                        # y columns per thread x 16 threads
+MAX_P = 128                        # the port's domain since its first kernel
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.load("ssd_scan")
     fn = lib.ssd_scan_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     smem = lib.ssd_scan_smem_bytes
-    smem.argtypes = [ctypes.c_int] * 3
+    smem.argtypes = [ctypes.c_int]
     smem.restype = ctypes.c_size_t
     return lib
 
@@ -84,17 +87,23 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     Bb, H, S, P = x.shape
     G, N = B_.shape[1], B_.shape[3]
     lib = _lib()
-    smem = lib.ssd_scan_smem_bytes(P, N, chunk)
+    smem = lib.ssd_scan_smem_bytes(chunk)
     if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"ssd_scan kernel: P={P}, N={N}, chunk={chunk} need "
-                         f"{smem} B of shared memory (> {MAX_SMEM_BYTES})")
+        raise ValueError(f"ssd_scan kernel: chunk={chunk} needs {smem} B of "
+                         f"shared memory (> {MAX_SMEM_BYTES})")
     y = torch.empty_like(x)
     if y.numel() == 0:
         return y
+    nc = S // chunk
+    f32 = dict(dtype=torch.float32, device=x.device)
+    cb = torch.empty((Bb, G, nc, chunk, chunk), **f32)
+    st = torch.empty((Bb, H, nc, -(-N * P // 4) * 4), **f32)   # padded
+    cum = torch.empty((Bb, H, S), **f32)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.ssd_scan_launch(
         x.data_ptr(), dt.data_ptr(), a.data_ptr(), B_.data_ptr(),
-        C_.data_ptr(), y.data_ptr(), Bb, H, G, S, P, N, chunk, stream)
+        C_.data_ptr(), y.data_ptr(), cb.data_ptr(), st.data_ptr(),
+        cum.data_ptr(), Bb, H, G, S, P, N, chunk, stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {err}")
     ssd_scan.launches += 1
