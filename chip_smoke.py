@@ -48,6 +48,21 @@ Phases, in order; any failure exits non-zero:
      dispatches and paged_decode drafter layers x (k+1) x spec dispatches;
      with the target as drafter, more than one token per sequence-step;
      acceptance and agreement with phase 4's streams are printed;
+  4e. the MoE FFN at full width on granite-moe-1b-a400m (24 layers, d
+     1024, 16/8 heads, hd 64, 32 experts, top-8; random bf16 weights):
+     paged_decode and paged_verify against their plain versions at its
+     attention widths (ragged lens, split edges, the whole pool) and the
+     page copies bit for bit on its pool; phase 4's sessions twice through
+     `Engine(device=None)` with identical tokens, exact budgets, cached
+     follow-ups and paged_decode = layers x decode steps; the host tier;
+     speculation with the target as its own drafter; a small fp32 MoE
+     engine that drops tokens past capacity at prefill gives the CPU
+     path's tokens, plain and speculative; `repro_torch.launch.serve`'s
+     `serve_single` and `serve_multiregion` answer 24 requests with a hit
+     rate > 0; prints the plain decode step at batch 8 (wall, tok/s,
+     device busy, device ms of the expert products, the dispatch,
+     paged_decode and the rest) and the four paged kernels' times at
+     these widths, which the kernels line carries under "moe";
   5. check the engine's tokens against its plain CPU path on a small
      fp32 model: plain serving, the host tier, one router pull, and
      speculation (both drafters) against the plain non-speculative tokens;
@@ -103,6 +118,9 @@ ROW_RTOL = {"torch.bfloat16": 8e-3, "torch.float32": 1e-4}
 SSD_ATOL, SSD_RTOL = 5e-5, 5e-4    # tests/test_kernels.py:221
 ATTN = "llama31-8b"                # flash_attention's full widths
 SSM = "mamba2-780m"                # ssd_scan's full widths
+POOL = (32, 1024, 16, 8, 128)      # Llama-3.1-8B pool: L, P, page, K, hd
+MOE = "granite-moe-1b-a400m"       # phase 4e's MoE model, full width
+MOE_SMALL = "granite-moe-1b-a400m-reduced"   # its fp32 CPU token check
 
 
 def fail(msg: str) -> None:
@@ -170,21 +188,33 @@ def device_ms(fn, iters: int = 50, warmup: int = 5) -> tuple[float, str]:
     over `iters` calls, divided by iters, so the host work between
     launches (a wrapper's checks, its allocations, the launch itself) does
     not count. Falls back to CUDA events around back-to-back calls, host
-    gaps included, when the profiler sees no device time. Returns (ms,
-    "profiler" | "events")."""
+    gaps included, when three profiles in a row see no device time.
+    Returns (ms, "profiler" | "events"); `timing` carries the second into
+    the kernels line."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(dev_us(e) for e in device_events(prof))
-    if us:
-        return us / 1e3 / iters, "profiler"
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(dev_us(e) for e in device_events(prof))
+        if us:
+            return us / 1e3 / iters, "profiler"
     return cuda_ms(fn, iters, warmup=0), "events"
+
+
+def timing(**readings: tuple[float, str]) -> dict:
+    """A kernels-line row's times from `device_ms` readings, keyed as the
+    row keys them (ms, plain_ms, library_ms), and under "timed_by" how
+    each was taken, so an events reading (host gaps included) is not read
+    as device time."""
+    out = {key: ms for key, (ms, _) in readings.items()}
+    out["timed_by"] = {key: how for key, (_, how) in readings.items()}
+    return out
 
 
 def kernel_parts(fn, iters: int = 10) -> dict:
@@ -295,19 +325,20 @@ def paged_bound(q, k_pages, table, lens) -> tuple[float, str]:
     return roofline(nbytes, flops, PEAK_FLOPS[str(q.dtype)])
 
 
-def kernel_inputs(dtype, lens, seed: int, Q=None, npg=None):
-    """Llama-3.1-8B attention shapes: H=32, K=8, hd=128, page=16, with
-    every table entry past a sequence's ragged edge set to garbage (-1 or
+def kernel_inputs(dtype, lens, seed: int, Q=None, npg=None, pool=None,
+                  H: int = 32):
+    """Attention shapes of `pool` (L, P, page, K, hd) with H query heads,
+    by default Llama-3.1-8B's: H=32, K=8, hd=128, page=16, with every
+    table entry past a sequence's ragged edge set to garbage (-1 or
     2**31-1). Decode (Q None): q (B, H, hd) over a pool just large enough;
     verify: q (B, Q, H, hd) over one layer of the full-width pool, lens
     counting the Q candidates. The table is `npg` entries wide, by default
     the longest sequence's live pages."""
     import torch
     g = torch.Generator(device=DEVICE).manual_seed(seed)
-    B, H, K, hd, page = len(lens), 32, 8, 128, 16
+    B, (_, P, page, K, hd) = len(lens), pool or POOL
     npg = npg or max(-(-n // page) for n in lens)
-    n_pages = (sum(-(-n // page) for n in lens) + 8 if Q is None
-               else POOL[1])
+    n_pages = (sum(-(-n // page) for n in lens) + 8 if Q is None else P)
     q = torch.randn((B, H, hd) if Q is None else (B, Q, H, hd),
                     generator=g, device=DEVICE).to(dtype)
     kp = torch.randn((n_pages, page, K, hd), generator=g, device=DEVICE).to(dtype)
@@ -322,6 +353,103 @@ def kernel_inputs(dtype, lens, seed: int, Q=None, npg=None):
         off += live
     return q, kp, vp, table, torch.tensor(lens, dtype=torch.int32,
                                           device=DEVICE)
+
+
+def paged_checks(pool, H: int) -> tuple[list, list]:
+    """paged_decode and paged_verify against their plain versions at the
+    attention widths of `pool` (L, P, page, K, hd) with H query heads, bf16
+    and fp32, over garbage tables: decode at ragged lens up to 3001, at its
+    split plan's edges and over the whole pool; verify (Q = SPEC_K + 1) at
+    ragged lens, at Q=1 against the decode kernel, at its split plan's
+    edges (some partials fully masked) and over the whole pool. Returns
+    the decode and verify lens of the ragged checks."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.paged_decode import paged_decode
+    from repro_torch.kernels.paged_verify import paged_verify
+    page = pool[2]
+    widths = f"H={H} K={pool[3]} hd={pool[4]}"
+    lens = [1, 16, 17, 32, 100, 1000, 2048, 3001]
+    for dtype in (torch.bfloat16, torch.float32):
+        q, kp, vp, table, ln = kernel_inputs(dtype, lens, seed=1, pool=pool,
+                                             H=H)
+        got = paged_decode(q, kp, vp, table, ln)
+        torch.cuda.synchronize()
+        want = ref.paged_decode_ref(q, kp, vp, table, ln)
+        err = check_close(f"paged_decode {dtype} {widths}", got, want)
+        row = check_rows(f"paged_decode {dtype} {widths}", got, q, kp, vp,
+                         table, ln)
+        print(f"kernel check: paged_decode {str(dtype)[6:]} {widths} "
+              f"lens={lens} max|err|={err:.3e} (tol {TOL[str(dtype)]}); against fp32 "
+              f"per row {row:.3e} (tol {ROW_RTOL[str(dtype)]})", flush=True)
+        del q, kp, vp
+        for label, lens_set, npg in decode_split_lens(dtype, pool):
+            name = f"paged_decode {str(dtype)[6:]} {widths} {label}"
+            args = kernel_inputs(dtype, lens_set, seed=8, npg=npg,
+                                 Q=1 if npg == pool[1] else None, pool=pool,
+                                 H=H)
+            if npg == pool[1]:             # one layer of the full pool
+                args = (args[0][:, 0].contiguous(), *args[1:])
+            got = paged_decode(*args)
+            torch.cuda.synchronize()
+            err = check_close(name, got, ref.paged_decode_ref(*args))
+            row = check_rows(name, got, *args)
+            plan = split_note(args[0], args[1], args[3], args[4])[0]
+            print(f"kernel check: {name} lens={lens_set}, NPG {npg}, garbage "
+                  f"tables: {plan}: max|err|={err:.3e} (tol "
+                  f"{TOL[str(dtype)]}); against "
+                  f"fp32 per row {row:.3e} (tol {ROW_RTOL[str(dtype)]})",
+                  flush=True)
+            del args, got
+        torch.cuda.empty_cache()
+
+    v_lens = [SPEC_K + 1, 16, 17, 32, 33, 100, 1000, 3001]
+    for dtype in (torch.bfloat16, torch.float32):
+        name = f"paged_verify {str(dtype)[6:]} {widths}"
+        args = kernel_inputs(dtype, v_lens, seed=3, Q=SPEC_K + 1, pool=pool,
+                             H=H)
+        got = paged_verify(*args)
+        torch.cuda.synchronize()
+        err = check_close(name, got, ref.paged_verify_ref(*args))
+        row = check_rows(name, got, *args, plain=ref.paged_verify_ref)
+        # Q=1 is a decode step: the verify kernel against the decode kernel
+        q1, kp, vp, table, ln = kernel_inputs(dtype, v_lens, seed=4, Q=1,
+                                              pool=pool, H=H)
+        one = paged_verify(q1, kp, vp, table, ln)[:, 0]
+        dec = paged_decode(q1[:, 0].contiguous(), kp, vp, table, ln)
+        torch.cuda.synchronize()
+        q1_err = check_close(f"{name} at Q=1 against paged_decode", one, dec)
+        print(f"kernel check: {name} B=8 Q={SPEC_K + 1} page={page}, "
+              f"pool {pool[1:]}, lens={v_lens}, garbage tables: "
+              f"max|err|={err:.3e} (tol {TOL[str(dtype)]}); against fp32 "
+              f"per row {row:.3e} (tol {ROW_RTOL[str(dtype)]}); at Q=1 "
+              f"against the paged_decode kernel max|err|={q1_err:.3e}"
+              f"{' (bit-identical)' if same_bits(one, dec) else ''}",
+              flush=True)
+        del args, q1, kp, vp
+        for label, lens_set in verify_split_lens(dtype, pool):
+            args = kernel_inputs(dtype, lens_set, seed=7, Q=SPEC_K + 1,
+                                 pool=pool, H=H)
+            got = paged_verify(*args)
+            torch.cuda.synchronize()
+            err = check_close(f"{name} {label}", got,
+                              ref.paged_verify_ref(*args))
+            row = check_rows(f"{name} {label}", got, *args,
+                             plain=ref.paged_verify_ref)
+            plan, masked = split_note(args[0], args[1], args[3], args[4])
+            if label == "split edges" and not masked:
+                fail(f"{name} {label}: lens {lens_set} leave no fully "
+                     f"masked partial under the plan {plan}")
+            print(f"kernel check: {name} {label} B={len(lens_set)} "
+                  f"lens={lens_set if len(lens_set) < 10 else '...'}, "
+                  f"garbage tables: {plan}, {masked} fully masked "
+                  f"(sequence, split, candidate) partials: max|err|="
+                  f"{err:.3e} (tol {TOL[str(dtype)]}); "
+                  f"against fp32 per row {row:.3e} (tol "
+                  f"{ROW_RTOL[str(dtype)]})", flush=True)
+            del args, got
+        torch.cuda.empty_cache()
+    return lens, v_lens
 
 
 def verify_bound(q, k_pages, table, lens) -> tuple[float, str]:
@@ -371,7 +499,7 @@ def split_note(q, k_pages, table, lens) -> tuple[str, int]:
             f"{live * K} with live pages"), masked
 
 
-def verify_split_lens(dtype) -> list[tuple[str, list[int]]]:
+def verify_split_lens(dtype, pool=None) -> list[tuple[str, list[int]]]:
     """Lens that reach paged_verify's split machinery at Q = SPEC_K + 1 on
     a layer of the full-width pool: at the edges of the plan that phase 3's
     shapes (B=8, NPG=188) get, E slots per split: len = Q, E - 1, E, E + 1
@@ -381,16 +509,17 @@ def verify_split_lens(dtype) -> list[tuple[str, list[int]]]:
     import torch
     from repro_torch.kernels.paged_decode import sm_count
     from repro_torch.kernels.paged_verify import split_plan
-    Q, page = SPEC_K + 1, POOL[2]
-    E = split_plan(8, POOL[3], -(-3001 // page), page, POOL[4],
+    pool = pool or POOL
+    Q, page = SPEC_K + 1, pool[2]
+    E = split_plan(8, pool[3], -(-3001 // page), page, pool[4],
                    torch.empty((), dtype=dtype).element_size(),
                    sm_count(torch.device(DEVICE, 0)))[1] * page
     return [("split edges", [Q, E - 1, E, E + 1, E + 2, E + 3, 2 * E + 1,
                              3001]),
-            ("one sequence over the whole pool", [page * POOL[1]])]
+            ("one sequence over the whole pool", [page * pool[1]])]
 
 
-def decode_split_lens(dtype) -> list[tuple[str, list[int], int]]:
+def decode_split_lens(dtype, pool=None) -> list[tuple[str, list[int], int]]:
     """(label, lens, table width) that reach paged_decode's split machinery
     at phase 3's shapes: B=8 with lens up to 3001 (NPG 188) at the edges of
     its plan, E slots per split: len = 1, E - 1, E, E + 1, 2E - 1, 2E,
@@ -399,7 +528,8 @@ def decode_split_lens(dtype) -> list[tuple[str, list[int], int]]:
     pool (NPG 1024)."""
     import torch
     from repro_torch.kernels.paged_decode import sm_count, split_plan
-    page, K, hd = POOL[2], POOL[3], POOL[4]
+    pool = pool or POOL
+    page, K, hd = pool[2], pool[3], pool[4]
     npg = -(-3001 // page)
     it = torch.empty((), dtype=dtype).element_size()
     sms = sm_count(torch.device(DEVICE, 0))
@@ -408,8 +538,8 @@ def decode_split_lens(dtype) -> list[tuple[str, list[int], int]]:
     return ([("split edges, B=8", [1, E - 1, E, E + 1, 2 * E - 1, 2 * E,
                                    2 * E + 1, 3001], npg)]
             + [("split edge, B=1", [n], npg) for n in (E1 - 1, E1, E1 + 1)]
-            + [("one sequence over the whole pool", [page * POOL[1]],
-                POOL[1])])
+            + [("one sequence over the whole pool", [page * pool[1]],
+                pool[1])])
 
 
 def flash_inputs(B, H, K, S, T, hd, dtype, seed: int):
@@ -653,13 +783,15 @@ def time_dense_kernels(card: str, dense: dict) -> dict:
             f"plain version", F.scaled_dot_product_attention(
                 q, k, v, is_causal=True, enable_gqa=True), plain)
         del plain
-        kern, how = device_ms(lambda: flash_attention(q, k, v, causal=True),
-                              iters=20)
-        pl, _ = device_ms(lambda: ref.flash_attention_ref(q, k, v,
-                                                          causal=True),
-                          iters=5, warmup=2)
-        lib, _ = device_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), iters=20)
+        t = timing(
+            ms=device_ms(lambda: flash_attention(q, k, v, causal=True),
+                         iters=20),
+            plain_ms=device_ms(lambda: ref.flash_attention_ref(
+                q, k, v, causal=True), iters=5, warmup=2),
+            library_ms=device_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True), iters=20))
+        kern, pl, lib = t["ms"], t["plain_ms"], t["library_ms"]
+        how = t["timed_by"]["ms"]
         b_ms, b_by = flash_bound(q, k, True)
         print(f"[{card}] flash_attention {str(dtype)[6:]} B=1 H={H} K={K} "
               f"S=T=2048 hd={hd} causal: kernel {kern * 1e3:.1f} us ({how}), "
@@ -667,13 +799,13 @@ def time_dense_kernels(card: str, dense: dict) -> dict:
               f"plain {lib_err:.3e}) {lib * 1e3:.1f} us, bound "
               f"{b_ms * 1e3:.2f} us ({b_by}; roofline share "
               f"{100 * b_ms / kern:.1f}%)", flush=True)
-        rows[str(dtype)] = dict(ms=kern, plain_ms=pl, library_ms=lib,
-                                bound_ms=b_ms, bound_by=b_by)
+        rows[str(dtype)] = dict(t, bound_ms=b_ms, bound_by=b_by)
         del q, k, v
         torch.cuda.empty_cache()
     args = dense["ssd_args"]
-    pl, _ = device_ms(lambda: ref.ssd_scan_ref(*args, chunk=chunk), iters=2,
+    plain = device_ms(lambda: ref.ssd_scan_ref(*args, chunk=chunk), iters=2,
                       warmup=1)
+    pl = plain[0]
     # one bound for both timings: the scan's work at the configured chunk,
     # at each peak of SSD_PEAKS; the kernels line takes the first, the
     # peak of the kernel's own form (3xTF32)
@@ -695,7 +827,8 @@ def time_dense_kernels(card: str, dense: dict) -> dict:
               + f"; the chunked form's products {gflop:.2f} GFLOP = "
               f"{gflop / kern:.1f} TFLOP/s", flush=True)
     # the kernels line reports the configured chunk, timed last
-    rows["ssd"] = dict(ms=kern, plain_ms=pl, bound_ms=b_ms, bound_by=b_by)
+    rows["ssd"] = dict(timing(ms=(kern, how), plain_ms=plain),
+                       bound_ms=b_ms, bound_by=b_by)
     return rows
 
 
@@ -712,7 +845,6 @@ def session_requests(GenRequest, SamplingParams, vocab: int, rng):
         sampling=SamplingParams(**kw)) for i, kw in enumerate(kws)]
 
 
-POOL = (32, 1024, 16, 8, 128)      # Llama-3.1-8B pool: L, P, page, K, hd
 # the pull scenario of tests/test_kvtransfer.py: a slow prefill and a fast
 # WAN, so pulling a cached prefix beats recomputing or forwarding it
 PULL_PARAMS = dict(kv_bytes_per_token=1e5, wan_rtt_s=0.1, prefill_tps=100.0,
@@ -739,17 +871,19 @@ def page_ids(n: int, P: int, g):
     return ids[torch.randperm(n, generator=g, device=DEVICE)].to(torch.int32)
 
 
-def check_page_copies(dtype, gather, scatter) -> float:
+def check_page_copies(dtype, gather, scatter, pool=None) -> float:
     """page_gather / page_scatter against their plain versions at the
-    full-width pool, bit for bit (tolerance 0): N in {1, 5, 16, 100};
-    pages outside the ids untouched; gather then scatter restores the
-    pool. Returns the largest |kernel - plain| seen (0.0 when exact)."""
+    full-width pool (by default Llama-3.1-8B's), bit for bit (tolerance
+    0): N in {1, 5, 16, 100}; pages outside the ids untouched; gather then
+    scatter restores the pool. Returns the largest |kernel - plain| seen
+    (0.0 when exact)."""
     import torch
     from repro_torch.kernels import ref
     g = torch.Generator(device=DEVICE).manual_seed(11)
-    P = POOL[1]
-    kp = torch.randn(POOL, generator=g, device=DEVICE).to(dtype)
-    vp = torch.randn(POOL, generator=g, device=DEVICE).to(dtype)
+    pool = pool or POOL
+    P = pool[1]
+    kp = torch.randn(pool, generator=g, device=DEVICE).to(dtype)
+    vp = torch.randn(pool, generator=g, device=DEVICE).to(dtype)
     worst = 0.0
     for n in (1, 5, 16, 100):
         ids = page_ids(n, P, g)
@@ -790,69 +924,71 @@ def check_page_copies(dtype, gather, scatter) -> float:
     return worst
 
 
-def copy_bound(n: int, itemsize: int) -> float:
+def copy_bound(n: int, itemsize: int, pool=None) -> float:
     """Least time of one page copy call, in ms: N tiles of both pools read
     once and written once over the HBM rate (no arithmetic)."""
-    L, _, page, K, hd = POOL
+    L, _, page, K, hd = pool or POOL
     return 1e3 * 2 * n * L * page * K * hd * itemsize * 2 / HBM_BYTES_PER_S
 
 
-def time_page_copies(gather, scatter, ns=(16, 100)) -> dict:
+def time_page_copies(gather, scatter, ns=(16, 100), pool=None) -> dict:
     """Device ms of each copy at N pages on the full-width bf16 pools:
     the kernel, its plain version and its library call (`device_ms`), and
     the bound; besides, the kernel's CUDA-event ms over back-to-back
     wrapper calls, which counts the wrapper's host work where it outlasts
-    the kernel. Each run of calls cycles over disjoint id sets, so the
-    pages come from HBM (2 GB pools against a 50 MB L2), as a flush or a
-    load-back finds them. The library yardsticks take one call per pool:
+    the kernel. Each run of calls cycles over disjoint id sets, each with
+    its own staged stacks, so the pages and the stacks come from HBM (2 GB
+    pools and 8 stacks of 12.6-210 MB against a 50 MB L2), as a flush or
+    a load-back finds them. The library yardsticks take one call per pool:
     `index_select(pool, 1, ids)` and `pool.index_copy_(1, ids,
     stack.transpose(0, 1))`."""
     import torch
     from repro_torch.kernels import ref
     g = torch.Generator(device=DEVICE).manual_seed(12)
-    P = POOL[1]
-    kp = torch.randn(POOL, generator=g, device=DEVICE).to(torch.bfloat16)
-    vp = torch.randn(POOL, generator=g, device=DEVICE).to(torch.bfloat16)
+    pool = pool or POOL
+    P = pool[1]
+    kp = torch.randn(pool, generator=g, device=DEVICE).to(torch.bfloat16)
+    vp = torch.randn(pool, generator=g, device=DEVICE).to(torch.bfloat16)
     out = {}
     for n in ns:
         perm = torch.randperm(P, generator=g, device=DEVICE).to(torch.int32)
         sets = [perm[i * n:(i + 1) * n] for i in range(min(8, P // n))]
         sets64 = [s.long() for s in sets]
-        ks, vs = gather(kp, vp, sets[0])
-        ks_t, vs_t = ks.transpose(0, 1), vs.transpose(0, 1)
+        stacks = [gather(kp, vp, s) for s in sets]
         turn = [0]
 
-        def nxt(pool):
+        def nxt():
             turn[0] += 1
-            return pool[turn[0] % len(sets)]
+            return turn[0] % len(sets)
 
         def g_lib():
-            i = nxt(sets64)
+            i = sets64[nxt()]
             torch.index_select(kp, 1, i)
             torch.index_select(vp, 1, i)
 
         def s_plain():
-            i = nxt(sets)
-            ref.page_scatter_ref(kp, ks, i)
-            ref.page_scatter_ref(vp, vs, i)
+            j = nxt()
+            ref.page_scatter_ref(kp, stacks[j][0], sets[j])
+            ref.page_scatter_ref(vp, stacks[j][1], sets[j])
 
         def s_lib():
-            i = nxt(sets64)
-            kp.index_copy_(1, i, ks_t)
-            vp.index_copy_(1, i, vs_t)
+            j = nxt()
+            kp.index_copy_(1, sets64[j], stacks[j][0].transpose(0, 1))
+            vp.index_copy_(1, sets64[j], stacks[j][1].transpose(0, 1))
 
         def g_plain():
-            i = nxt(sets)
+            i = sets[nxt()]
             ref.page_gather_ref(kp, i)
             ref.page_gather_ref(vp, i)
 
         def g_kernel():
-            gather(kp, vp, nxt(sets))
+            gather(kp, vp, sets[nxt()])
 
         def s_kernel():
-            scatter(kp, vp, ks, vs, nxt(sets))
+            j = nxt()
+            scatter(kp, vp, *stacks[j], sets[j])
 
-        out[n] = {"bound": copy_bound(n, 2)}
+        out[n] = {"bound": copy_bound(n, 2, pool)}
         for name, kern, plain, lib in (("gather", g_kernel, g_plain, g_lib),
                                        ("scatter", s_kernel, s_plain, s_lib)):
             out[n][name] = {
@@ -1201,6 +1337,89 @@ def common_prefix(a, b) -> int:
     return n
 
 
+def serve_sessions(eng, rng, label: str) -> dict:
+    """Phase 4's workload on `eng`: a warm-up request of its own tokens
+    (cuBLAS handles, the kernel library) before anything is counted or
+    timed, then the first turns of four chat sessions sharing a system
+    prompt (`session_requests`) and their follow-ups (the first turn, its
+    answer and 24 new tokens). Times every prefill round and decode step
+    (each ends in its host sync), counts paged_decode's launches over the
+    sessions (the path's counts: set to 0 just before, read just after)
+    and captures one decode step's layer-0 attention inputs and output.
+    Checks every result at its exact budget, cached tokens on every
+    follow-up and launches = layers x decode steps. Returns the turns,
+    results, launches, capture, timings and uncached prefill tokens."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.paged_decode import paged_decode
+    from repro_torch.serving import GenRequest, SamplingParams
+    cfg = eng.cfg
+    eng.generate([GenRequest(prompt_tokens=tuple(
+        rng.integers(0, cfg.vocab, size=40).tolist()),
+        sampling=SamplingParams(max_new_tokens=4))])
+
+    be = eng.backend
+    prefill_s, decode_s, decode_tokens = [], [], [0]
+    orig_prefill, orig_decode = be.prefill_batch, be.decode
+
+    def timed_prefill(items):
+        t = time.perf_counter()
+        out = orig_prefill(items)
+        prefill_s.append(time.perf_counter() - t)
+        return out
+
+    def timed_decode(seqs):
+        t = time.perf_counter()
+        out = orig_decode(seqs)
+        decode_s.append(time.perf_counter() - t)
+        decode_tokens[0] += len(out)
+        return out
+
+    captured = {}
+    orig_ops = ops.paged_decode
+
+    def capturing(q, k_pages, v_pages, table, seq_lens):
+        out = orig_ops(q, k_pages, v_pages, table, seq_lens)
+        if len(decode_s) == 10 and not captured:
+            captured.update(q=q.clone(), k=k_pages.clone(), v=v_pages.clone(),
+                            table=table.clone(), lens=seq_lens.clone(),
+                            out=out.clone())
+        return out
+
+    be.prefill_batch, be.decode = timed_prefill, timed_decode
+    ops.paged_decode = capturing
+    prefill_before = eng.prefill_tokens - eng.cached_tokens
+    paged_decode.launches = 0                          # the path starts
+    turn1 = session_requests(GenRequest, SamplingParams, cfg.vocab, rng)
+    res1 = eng.generate(turn1)
+    turn2 = [GenRequest(prompt_tokens=r.prompt_tokens + o.output_tokens + tuple(
+        rng.integers(0, cfg.vocab, size=24).tolist()),
+        sampling=r.sampling) for r, o in zip(turn1, res1)]
+    res2 = eng.generate(turn2)
+    launches = paged_decode.launches                   # the path ends
+    ops.paged_decode = orig_ops
+    be.prefill_batch, be.decode = orig_prefill, orig_decode
+    prefilled = eng.prefill_tokens - eng.cached_tokens - prefill_before
+
+    check_results(label, res1 + res2, cfg.vocab)
+    got = [len(r.output_tokens) for r in res1 + res2]
+    budgets = [r.sampling.max_new_tokens for r in turn1 + turn2]
+    if got != budgets:
+        fail(f"{label}: output lengths {got} != budgets {budgets}")
+    if not all(r.cached_tokens > 0 for r in res2):
+        fail(f"{label}: follow-up turns hit no cache: "
+             f"{[r.cached_tokens for r in res2]}")
+    want_launches = cfg.n_layers * len(decode_s)
+    if launches != want_launches:
+        fail(f"{label}: paged_decode launched {launches} times; expected "
+             f"n_layers x decode steps = {want_launches}")
+    if not captured:
+        fail(f"{label}: no decode step was captured")
+    return dict(turns=[turn1, turn2], results=[res1, res2],
+                launches=launches, captured=captured, prefill_s=prefill_s,
+                decode_s=decode_s, decode_tokens=decode_tokens[0],
+                prefilled=prefilled)
+
+
 def spec_phase(cfg, params, ecfg, turns, base, drafter, label: str,
                capture_at=None) -> dict:
     """Speculation at full width: phase 4's requests (`turns`, each a list
@@ -1265,13 +1484,295 @@ def spec_phase(cfg, params, ecfg, turns, base, drafter, label: str,
           f"{per_step:.3f} tokens per sequence-step; launches paged_verify "
           f"{launches[0]} = {cfg.n_layers} x {disp}, paged_decode "
           f"{launches[1]} = {dcfg.n_layers} x {SPEC_K + 1} x {disp}; "
-          f"against phase 4's bf16 streams: {same}/{len(res)} requests "
+          f"against the plain engine's bf16 streams: {same}/{len(res)} "
+          f"requests "
           f"identical, common prefixes {agree}/{sum(map(len, base))} "
           f"tokens", flush=True)
     if capture_at is not None and not captured:
         fail(f"speculation ({label}): no verify step was captured")
     return dict(eng=eng, launches=launches, per_step=per_step, outs=outs,
                 captured=captured)
+
+
+def moe_phase(card: str) -> dict:
+    """Phase 4e, the MoE FFN at full width on granite-moe-1b-a400m (24
+    layers, d 1024, 16/8 heads, hd 64, 32 experts, top-8, d_expert 512,
+    seeded random bf16 weights, the router fp32). Holds paged_decode and
+    paged_verify at its attention widths and the page copies on its pool
+    against their plain versions; serves phase 4's two-turn sessions twice
+    through `Engine(device=None)` (the same tokens both times, exact
+    budgets, cached follow-ups, paged_decode = layers x decode steps), the
+    host tier, and speculation with the target as its own drafter; checks
+    that a small fp32 MoE engine whose prefill drops tokens past capacity
+    gives the CPU path's tokens, plain and speculative; serves the CLI's
+    two modes (24 requests, a hit rate > 0). Prints the plain decode step
+    at batch 8 (wall, tok/s, device busy) with the device ms of its parts.
+    Returns the MoE numbers of rows 1-4 of the kernels line."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.page_copy import page_gather, page_scatter
+    from repro_torch.kernels.paged_decode import paged_decode
+    from repro_torch.kernels.paged_verify import paged_verify
+    from repro_torch.launch import serve
+    from repro_torch.models import init_params, leaves, moe, param_count
+    from repro_torch.serving import (Engine, EngineConfig, GenRequest,
+                                     SamplingParams)
+    from repro_torch.serving import model_runner as mr
+
+    cfg = get_config(MOE)
+    pool = (cfg.n_layers, 1024, 16, cfg.n_kv_heads, cfg.hd)
+    widths = f"{cfg.name} H={cfg.n_heads} K={pool[3]} hd={pool[4]}"
+    paged_checks(pool, cfg.n_heads)
+    copy_err = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        copy_err = max(copy_err,
+                       check_page_copies(dtype, page_gather, page_scatter,
+                                         pool))
+        torch.cuda.empty_cache()
+        print(f"kernel check: page_gather / page_scatter {str(dtype)[6:]} "
+              f"pools {pool} ({cfg.name}), N in (1, 5, 16, 100): bit-exact "
+              f"against the plain versions (tolerance 0), pages outside the "
+              f"ids untouched, gather then scatter restores the pool",
+              flush=True)
+
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.bfloat16, DEVICE,
+                         torch.Generator(device=DEVICE).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = param_count(params)
+    gb = sum(t.numel() * t.element_size() for t in leaves(params)) / 1e9
+    print(f"weights: {cfg.name} {n_params / 1e9:.3f} B params bf16, the "
+          f"router fp32 ({gb:.2f} GB) in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    # two runs of phase 4's sessions: the combine's fixed order makes the
+    # bf16 streams repeat
+    ecfg = EngineConfig(page_size=16, n_pages=pool[1], max_batch=8,
+                        max_seq_len=2048)
+    outs = []
+    for i in range(2):
+        eng = Engine(cfg, params, ecfg, seed=0, device=None)   # the card
+        run = serve_sessions(eng, np.random.default_rng(0),
+                             f"MoE engine, run {i + 1}")
+        res = run["results"][0] + run["results"][1]
+        steps, launches = len(run["decode_s"]), run["launches"]
+        outs.append([r.output_tokens for r in res])
+        print(f"MoE engine ({cfg.name} bf16), run {i + 1}: {len(res)} "
+              f"requests at their exact budgets, "
+              f"{sum(map(len, outs[-1]))} tokens out, cached tokens on "
+              f"follow-ups {[r.cached_tokens for r in run['results'][1]]}, "
+              f"{steps} decode steps, paged_decode launches {launches} = "
+              f"{cfg.n_layers} x {steps}", flush=True)
+    if outs[0] != outs[1]:
+        fail("MoE engine: two bf16 runs gave different tokens")
+    c = run["captured"]
+    c_args = (c["q"], c["k"], c["v"], c["table"], c["lens"])
+    m_err = check_close("MoE paged_decode on a captured decode step",
+                        c["out"], ref.paged_decode_ref(*c_args))
+    m_row = check_rows("MoE paged_decode on a captured decode step",
+                       c["out"], *c_args)
+    print(f"MoE engine: the two bf16 runs' tokens are identical "
+          f"({sum(map(len, outs[0]))} tokens); captured step (B="
+          f"{c['q'].shape[0]}, lens={c['lens'].tolist()}) max|err|="
+          f"{m_err:.3e}, against fp32 per row {m_row:.3e}", flush=True)
+
+    host_launches = host_tier_phase(cfg, params)
+    turns = [[(r.prompt_tokens, r.sampling) for r in t]
+             for t in run["turns"]]
+    spec = spec_phase(cfg, params, ecfg, turns, outs[1], (cfg, params),
+                      f"{cfg.name}, drafter = target", capture_at=5)
+    vc = spec["captured"]
+    v_args = (vc["q"], vc["k"], vc["v"], vc["table"], vc["lens"])
+    v_err = check_close("MoE paged_verify on a captured verify step",
+                        vc["out"], ref.paged_verify_ref(*v_args))
+    v_row = check_rows("MoE paged_verify on a captured verify step",
+                       vc["out"], *v_args, plain=ref.paged_verify_ref)
+    print(f"MoE speculation: captured verify step (B={vc['q'].shape[0]}, "
+          f"Q={vc['q'].shape[1]}, lens={vc['lens'].tolist()}) max|err|="
+          f"{v_err:.3e}, against fp32 per row {v_row:.3e}", flush=True)
+
+    # a small fp32 MoE engine on the card against the plain CPU path;
+    # request 0 opens with 100 equal tokens, whose hidden states route
+    # alike and overflow two experts at prefill
+    small = get_config(MOE_SMALL)
+    cpu_params = init_params(small, torch.float32, "cpu",
+                             torch.Generator().manual_seed(0))
+    gpu_params = _to(cpu_params, DEVICE)
+    r = np.random.default_rng(5)
+
+    def tok(n):
+        return tuple(int(t) for t in r.integers(1, small.vocab, n))
+
+    specs = [((7,) * 100 + tok(8), dict(max_new_tokens=6)),
+             (tok(23), dict(max_new_tokens=5, temperature=0.7, top_k=3,
+                            seed=1)),
+             (tok(9), dict(max_new_tokens=7, temperature=1.1, seed=4)),
+             (tok(31), dict(max_new_tokens=4))]
+    small_ecfg = EngineConfig(page_size=8, n_pages=64, max_batch=4,
+                              max_seq_len=256, prefill_pad=16)
+    dropped: dict = {}
+    orig_dispatch = moe._dispatch_group
+
+    def counting(gate_vals, eids, E, C):
+        out = orig_dispatch(gate_vals, eids, E, C)
+        dev = eids.device.type
+        dropped[dev] = dropped.get(dev, 0) + int((out[2] == E * C).sum())
+        return out
+
+    moe._dispatch_group = counting
+    streams, accept = {}, ""
+    for label, dev, p, k in (("card", DEVICE, gpu_params, 0),
+                             ("CPU", "cpu", cpu_params, 0),
+                             ("card, spec", DEVICE, gpu_params, SPEC_K),
+                             ("CPU, spec", "cpu", cpu_params, SPEC_K)):
+        e = Engine(small, p, dataclasses.replace(small_ecfg, spec_k=k),
+                   draft_cfg=small if k else None,
+                   draft_params=p if k else None, device=dev)
+        streams[label] = [o.output_tokens for o in e.generate([
+            GenRequest(prompt_tokens=pr, sampling=SamplingParams(**kw))
+            for pr, kw in specs])]
+        if label == "card, spec":
+            accept = (f"{e.backend.spec_accepted}/"
+                      f"{e.backend.spec_drafted}")
+    moe._dispatch_group = orig_dispatch
+    if streams["card"] != streams["CPU"]:
+        fail(f"small fp32 MoE engine: card tokens {streams['card']} != plain "
+             f"CPU path {streams['CPU']}")
+    if streams["card, spec"] != streams["CPU, spec"]:
+        fail(f"small fp32 MoE engine, speculation: card tokens "
+             f"{streams['card, spec']} != plain CPU path "
+             f"{streams['CPU, spec']}")
+    card_drops = dropped.get(torch.device(DEVICE).type, 0)
+    if not card_drops > 0:
+        fail("small fp32 MoE engine: no assignment dropped past capacity")
+    print(f"reference: small fp32 MoE engine ({small.name}) tokens on the "
+          f"card equal the plain CPU path's, plain and speculative (spec_k="
+          f"{SPEC_K}, drafter = target, acceptance {accept}; the same as "
+          f"the plain stream: {streams['card, spec'] == streams['card']}); "
+          f"{card_drops} assignments dropped past capacity on the card",
+          flush=True)
+
+    # the serve CLI on the card
+    paged_decode.launches = 0                         # CLI path starts
+    single = serve.serve_single(MOE, 24, 8)
+    multi = serve.serve_multiregion(MOE, 24, 8)
+    cli_launches = paged_decode.launches              # CLI path ends
+    print(f"[{card}] repro_torch.launch.serve.serve_single({MOE!r}, 24, 8): "
+          f"{single}", flush=True)
+    print(f"[{card}] repro_torch.launch.serve.serve_multiregion({MOE!r}, "
+          f"24, 8): {multi}", flush=True)
+    multi_rates = [x for lb in multi["hit_rates"].values()
+                   for x in lb.values()]
+    if not (single["requests"] == multi["requests"] == 24
+            and single["hit_rate"] > 0 and max(multi_rates) > 0):
+        fail(f"serve CLI: requests {single['requests']} / "
+             f"{multi['requests']} (want 24 each), hit rates "
+             f"{single['hit_rate']} / {multi_rates} (want some > 0)")
+    if not cli_launches > 0:
+        fail("serve CLI: paged_decode never launched")
+    print(f"serve CLI: both modes answered 24 requests; paged_decode "
+          f"launches {cli_launches}", flush=True)
+    torch.cuda.empty_cache()
+
+    # the plain decode step at batch 8, and its parts' device time: the
+    # MoE layers and their expert products replayed on one steady step's
+    # captured inputs
+    moe_calls, exp_calls = [], []
+
+    def capture_layers(e):
+        apply, experts = mr.apply_moe, moe._experts
+
+        def rec_apply(p, x, c):
+            moe_calls.append((p, x.clone()))
+            return apply(p, x, c)
+
+        def rec_experts(p, xe):
+            exp_calls.append((p, xe.clone()))
+            return experts(p, xe)
+
+        mr.apply_moe, moe._experts = rec_apply, rec_experts
+        try:
+            e.step()
+        finally:
+            mr.apply_moe, moe._experts = apply, experts
+
+    step_ms, step_tps, busy, paged = decode_profile(
+        eng, card, f"{cfg.name} plain decode", GenRequest, SamplingParams,
+        np.random.default_rng(1), on_steady=capture_layers)
+    if not len(moe_calls) == len(exp_calls) == cfg.n_layers:
+        fail(f"MoE profile: captured {len(moe_calls)} / {len(exp_calls)} "
+             f"layer calls, not {cfg.n_layers}")
+    moe_ms, _ = device_ms(lambda: [mr.apply_moe(p, x, cfg)
+                                   for p, x in moe_calls], iters=10)
+    exp_ms, _ = device_ms(lambda: [moe._experts(p, xe)
+                                   for p, xe in exp_calls], iters=10)
+    w_bytes = sum(p[k].numel() * p[k].element_size() for p, _ in exp_calls
+                  for k in ("w_gate", "w_up", "w_down"))
+    exp_bound = 1e3 * w_bytes / HBM_BYTES_PER_S
+    dec_ms = paged["paged_decode"]
+    xe = exp_calls[0][1]
+    print(f"[{card}] {cfg.name} plain decode step, batch 8: wall "
+          f"{step_ms:.2f} ms, {step_tps:.1f} tok/s, device busy {busy:.2f} "
+          f"ms = {100 * busy / step_ms:.1f}% of the wall; device ms per "
+          f"step: expert products {exp_ms:.3f} (G x E x C = "
+          f"{' x '.join(map(str, xe.shape[:3]))} rows per layer; "
+          f"{w_bytes / 1e9:.2f} GB of expert weights, bound "
+          f"{exp_bound:.3f} ms, bytes), dispatch (router, softmax, top-k, "
+          f"sort, gather, combine) {moe_ms - exp_ms:.3f}, paged_decode "
+          f"{dec_ms:.3f}, the rest {busy - moe_ms - dec_ms:.3f}", flush=True)
+
+    # rows 1-4 at these widths
+    dec_t = timing(ms=device_ms(lambda: paged_decode(*c_args)),
+                   plain_ms=device_ms(lambda: ref.paged_decode_ref(*c_args),
+                                      iters=20))
+    k_ms, p_ms = dec_t["ms"], dec_t["plain_ms"]
+    b_ms, b_by = paged_bound(c["q"], c["k"], c["table"], c["lens"])
+    ver_t = timing(ms=device_ms(lambda: paged_verify(*v_args)),
+                   plain_ms=device_ms(lambda: ref.paged_verify_ref(*v_args),
+                                      iters=20))
+    vk_ms, vp_ms = ver_t["ms"], ver_t["plain_ms"]
+    vb_ms, vb_by = verify_bound(vc["q"], vc["k"], vc["table"], vc["lens"])
+    print(f"[{card}] paged_decode at the MoE captured step ({widths}, B="
+          f"{c['q'].shape[0]}, lens={c['lens'].tolist()}): "
+          f"{split_note(c['q'], c['k'], c['table'], c['lens'])[0]}; kernel "
+          f"{k_ms * 1e3:.1f} us ({dec_t['timed_by']['ms']}), plain "
+          f"{p_ms * 1e3:.1f} us, bound "
+          f"{b_ms * 1e3:.2f} us ({b_by}), {cfg.n_layers} launches per "
+          f"decode step", flush=True)
+    print(f"[{card}] paged_verify at the MoE captured verify step ({widths},"
+          f" B={vc['q'].shape[0]}, Q={vc['q'].shape[1]}, lens="
+          f"{vc['lens'].tolist()}): "
+          f"{split_note(vc['q'], vc['k'], vc['table'], vc['lens'])[0]}; "
+          f"kernel {vk_ms * 1e3:.1f} us ({ver_t['timed_by']['ms']}), plain "
+          f"{vp_ms * 1e3:.1f} us, bound {vb_ms * 1e3:.2f} us ({vb_by})",
+          flush=True)
+    copy_t = time_page_copies(page_gather, page_scatter, ns=(16,), pool=pool)
+    t = copy_t[16]
+    for name in ("gather", "scatter"):
+        (k, how), (pl, _), (lib, _) = (t[name]["kernel"], t[name]["plain"],
+                                       t[name]["library"])
+        print(f"[{card}] page_{name} bf16 N=16 pools {pool}: kernel "
+              f"{k * 1e3:.1f} us ({how}), plain {pl * 1e3:.1f} us, library "
+              f"{lib * 1e3:.1f} us, bound {t['bound'] * 1e3:.1f} us (bytes; "
+              f"roofline share {100 * t['bound'] / k:.1f}%)", flush=True)
+    rows = {
+        "paged_decode": dict(dec_t, launches=launches, max_abs_err=m_err,
+                             bound_ms=b_ms, bound_by=b_by),
+        "paged_verify": dict(ver_t, launches=spec["launches"][0],
+                             max_abs_err=v_err, bound_ms=vb_ms,
+                             bound_by=vb_by)}
+    for i, name in enumerate(("gather", "scatter")):
+        rows[f"page_{name}"] = dict(
+            timing(ms=t[name]["kernel"], plain_ms=t[name]["plain"],
+                   library_ms=t[name]["library"]),
+            launches=host_launches[i], max_abs_err=copy_err,
+            bound_ms=t["bound"], bound_by="bytes")
+    for name, row in rows.items():
+        row["shape"] = (f"N=16 pages of bf16 pools {list(pool)}"
+                        if name.startswith("page_") else widths)
+    return rows
 
 
 def main() -> int:
@@ -1288,7 +1789,7 @@ def main() -> int:
     sys.path.insert(0, str(src))
     import numpy as np
     from repro_torch.configs import get_config
-    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import build, ref
     from repro_torch.kernels.page_copy import page_gather, page_scatter
     from repro_torch.kernels.paged_decode import paged_decode
     from repro_torch.kernels.paged_verify import paged_verify
@@ -1322,81 +1823,7 @@ def main() -> int:
             print(f"build: ptxas -v {name}.cu: {line}", flush=True)
 
     # ---- 3. kernel against its plain version at Llama-3.1-8B decode shapes
-    lens = [1, 16, 17, 32, 100, 1000, 2048, 3001]
-    for dtype in (torch.bfloat16, torch.float32):
-        q, kp, vp, table, ln = kernel_inputs(dtype, lens, seed=1)
-        got = paged_decode(q, kp, vp, table, ln)
-        torch.cuda.synchronize()
-        want = ref.paged_decode_ref(q, kp, vp, table, ln)
-        err = check_close(f"paged_decode {dtype}", got, want)
-        row = check_rows(f"paged_decode {dtype}", got, q, kp, vp, table, ln)
-        print(f"kernel check: paged_decode {str(dtype)[6:]} lens={lens} "
-              f"max|err|={err:.3e} (tol {TOL[str(dtype)]}); against fp32 "
-              f"per row {row:.3e} (tol {ROW_RTOL[str(dtype)]})", flush=True)
-        del q, kp, vp
-        for label, lens_set, npg in decode_split_lens(dtype):
-            name = f"paged_decode {str(dtype)[6:]} {label}"
-            args = kernel_inputs(dtype, lens_set, seed=8, npg=npg,
-                                 Q=1 if npg == POOL[1] else None)
-            if npg == POOL[1]:             # one layer of the full pool
-                args = (args[0][:, 0].contiguous(), *args[1:])
-            got = paged_decode(*args)
-            torch.cuda.synchronize()
-            err = check_close(name, got, ref.paged_decode_ref(*args))
-            row = check_rows(name, got, *args)
-            plan = split_note(args[0], args[1], args[3], args[4])[0]
-            print(f"kernel check: {name} lens={lens_set}, NPG {npg}, garbage "
-                  f"tables: {plan}: max|err|={err:.3e} (tol "
-                  f"{TOL[str(dtype)]}); against "
-                  f"fp32 per row {row:.3e} (tol {ROW_RTOL[str(dtype)]})",
-                  flush=True)
-            del args, got
-        torch.cuda.empty_cache()
-
-    v_lens = [SPEC_K + 1, 16, 17, 32, 33, 100, 1000, 3001]
-    for dtype in (torch.bfloat16, torch.float32):
-        name = f"paged_verify {str(dtype)[6:]}"
-        args = kernel_inputs(dtype, v_lens, seed=3, Q=SPEC_K + 1)
-        got = paged_verify(*args)
-        torch.cuda.synchronize()
-        err = check_close(name, got, ref.paged_verify_ref(*args))
-        row = check_rows(name, got, *args, plain=ref.paged_verify_ref)
-        # Q=1 is a decode step: the verify kernel against the decode kernel
-        q1, kp, vp, table, ln = kernel_inputs(dtype, v_lens, seed=4, Q=1)
-        one = paged_verify(q1, kp, vp, table, ln)[:, 0]
-        dec = paged_decode(q1[:, 0].contiguous(), kp, vp, table, ln)
-        torch.cuda.synchronize()
-        q1_err = check_close(f"{name} at Q=1 against paged_decode", one, dec)
-        print(f"kernel check: {name} B=8 Q={SPEC_K + 1} H=32 K=8 hd=128 "
-              f"page=16, pool {POOL[1:]}, lens={v_lens}, garbage tables: "
-              f"max|err|={err:.3e} (tol {TOL[str(dtype)]}); against fp32 "
-              f"per row {row:.3e} (tol {ROW_RTOL[str(dtype)]}); at Q=1 "
-              f"against the paged_decode kernel max|err|={q1_err:.3e}"
-              f"{' (bit-identical)' if same_bits(one, dec) else ''}",
-              flush=True)
-        del args, q1, kp, vp
-        for label, lens_set in verify_split_lens(dtype):
-            args = kernel_inputs(dtype, lens_set, seed=7, Q=SPEC_K + 1)
-            got = paged_verify(*args)
-            torch.cuda.synchronize()
-            err = check_close(f"{name} {label}", got,
-                              ref.paged_verify_ref(*args))
-            row = check_rows(f"{name} {label}", got, *args,
-                             plain=ref.paged_verify_ref)
-            plan, masked = split_note(args[0], args[1], args[3], args[4])
-            if label == "split edges" and not masked:
-                fail(f"{name} {label}: lens {lens_set} leave no fully "
-                     f"masked partial under the plan {plan}")
-            print(f"kernel check: {name} {label} B={len(lens_set)} "
-                  f"lens={lens_set if len(lens_set) < 10 else '...'}, "
-                  f"garbage tables: {plan}, {masked} fully masked "
-                  f"(sequence, split, candidate) partials: max|err|="
-                  f"{err:.3e} (tol {TOL[str(dtype)]}); "
-                  f"against fp32 per row {row:.3e} (tol "
-                  f"{ROW_RTOL[str(dtype)]})", flush=True)
-            del args, got
-        torch.cuda.empty_cache()
-
+    lens, v_lens = paged_checks(POOL, 32)
     copy_err = 0.0
     for dtype in (torch.bfloat16, torch.float32):
         copy_err = max(copy_err,
@@ -1425,68 +1852,10 @@ def main() -> int:
                         max_seq_len=2048)
     eng = Engine(cfg, params, ecfg, seed=0, device=DEVICE)
     rng = np.random.default_rng(0)
-
-    # warm-up: one short request of its own tokens (cuBLAS handles, the
-    # kernel library) before anything is counted or timed
-    eng.generate([GenRequest(prompt_tokens=tuple(
-        rng.integers(0, cfg.vocab, size=40).tolist()),
-        sampling=SamplingParams(max_new_tokens=4))])
-
-    # time every prefill round and decode step (each ends in its host sync)
-    be = eng.backend
-    prefill_s, decode_s, decode_tokens = [], [], [0]
-    orig_prefill, orig_decode = be.prefill_batch, be.decode
-
-    def timed_prefill(items):
-        t = time.perf_counter()
-        out = orig_prefill(items)
-        prefill_s.append(time.perf_counter() - t)
-        return out
-
-    def timed_decode(seqs):
-        t = time.perf_counter()
-        out = orig_decode(seqs)
-        decode_s.append(time.perf_counter() - t)
-        decode_tokens[0] += len(out)
-        return out
-
-    # capture one decode step's layer-0 attention inputs on the main path
-    captured = {}
-    orig_ops = ops.paged_decode
-
-    def capturing(q, k_pages, v_pages, table, seq_lens):
-        out = orig_ops(q, k_pages, v_pages, table, seq_lens)
-        if len(decode_s) == 10 and not captured:
-            captured.update(q=q.clone(), k=k_pages.clone(), v=v_pages.clone(),
-                            table=table.clone(), lens=seq_lens.clone(),
-                            out=out.clone())
-        return out
-
-    be.prefill_batch, be.decode = timed_prefill, timed_decode
-    ops.paged_decode = capturing
-    prefill_before = eng.prefill_tokens - eng.cached_tokens
-    paged_decode.launches = 0                          # main path starts
-    turn1 = session_requests(GenRequest, SamplingParams, cfg.vocab, rng)
-    res1 = eng.generate(turn1)
-    turn2 = [GenRequest(prompt_tokens=r.prompt_tokens + o.output_tokens + tuple(
-        rng.integers(0, cfg.vocab, size=24).tolist()),
-        sampling=r.sampling) for r, o in zip(turn1, res1)]
-    res2 = eng.generate(turn2)
-    launches = paged_decode.launches                   # main path ends
-    ops.paged_decode = orig_ops
-    be.prefill_batch, be.decode = orig_prefill, orig_decode
-    prefilled = eng.prefill_tokens - eng.cached_tokens - prefill_before
-
-    check_results("engine", res1 + res2, cfg.vocab)
-    if not all(r.cached_tokens > 0 for r in res2):
-        fail(f"follow-up turns hit no cache: "
-             f"{[r.cached_tokens for r in res2]}")
-    want_launches = cfg.n_layers * len(decode_s)
-    if launches != want_launches:
-        fail(f"paged_decode launched {launches} times on the main path; "
-             f"expected n_layers x decode steps = {want_launches}")
-    if not captured:
-        fail("no decode step was captured")
+    run = serve_sessions(eng, rng, "engine")
+    turn1, turn2, res1, res2 = run["turns"] + run["results"]
+    launches, captured, decode_s = (run["launches"], run["captured"],
+                                    run["decode_s"])
     c = captured
     want = ref.paged_decode_ref(c["q"], c["k"], c["v"], c["table"], c["lens"])
     main_err = check_close("paged_decode on a captured decode step",
@@ -1533,6 +1902,9 @@ def main() -> int:
           f"(B={vc['q'].shape[0]}, Q={vc['q'].shape[1]}, "
           f"lens={vc['lens'].tolist()}) max|err|={v_err:.3e}, against fp32 "
           f"per row {v_row:.3e}", flush=True)
+
+    # ---- 4e. the MoE FFN at full width: granite-moe-1b-a400m
+    moe_rows = moe_phase(card)
 
     # ---- 5. the engine's tokens against its plain CPU path (small, fp32)
     small = get_config("llama31-8b-reduced")
@@ -1622,7 +1994,8 @@ def main() -> int:
           f"tokens equal the plain CPU path's", flush=True)
 
     # ---- 6. measurements
-    dec_tok_s = decode_tokens[0] / sum(decode_s)
+    prefill_s, prefilled = run["prefill_s"], run["prefilled"]
+    dec_tok_s = run["decode_tokens"] / sum(decode_s)
     pre_tok_s = prefilled / sum(prefill_s)
     step_ms = 1e3 * statistics.median(decode_s)
     q, kp, vp, table, ln = (c["q"], c["k"], c["v"], c["table"], c["lens"])
@@ -1630,9 +2003,11 @@ def main() -> int:
     p_ms = cuda_ms(lambda: ref.paged_decode_ref(q, kp, vp, table, ln))
     # the same two as device time, which the kernels line reports as every
     # row does; the events above stay in the printed line only
-    k_dev, _ = device_ms(lambda: paged_decode(q, kp, vp, table, ln))
-    p_dev, _ = device_ms(lambda: ref.paged_decode_ref(q, kp, vp, table, ln),
-                         iters=20)
+    dec_t = timing(
+        ms=device_ms(lambda: paged_decode(q, kp, vp, table, ln)),
+        plain_ms=device_ms(lambda: ref.paged_decode_ref(q, kp, vp, table, ln),
+                           iters=20))
+    k_dev, p_dev = dec_t["ms"], dec_t["plain_ms"]
     b_ms, b_by = paged_bound(q, kp, table, ln)
     k_parts = kernel_parts(lambda: paged_decode(q, kp, vp, table, ln))
     print(f"[{card}] engine {cfg.name} bf16 page=16 max_batch=8: prefill "
@@ -1645,8 +2020,9 @@ def main() -> int:
     print(f"[{card}] paged_decode at the captured step (B={q.shape[0]}, "
           f"lens={ln.tolist()}): kernel {k_ms * 1e3:.1f} us, plain "
           f"{p_ms * 1e3:.1f} us (CUDA events over back-to-back calls; "
-          f"device time: kernel {k_dev * 1e3:.1f} us, plain "
-          f"{p_dev * 1e3:.1f} us; split and combine "
+          f"device time ({dec_t['timed_by']['ms']}): kernel "
+          f"{k_dev * 1e3:.1f} us, plain {p_dev * 1e3:.1f} us; split and "
+          f"combine "
           + ", ".join(f"{k} {v * 1e3:.2f}" for k, v in k_parts.items())
           + f" us), bound {b_ms * 1e3:.2f} us ({b_by}), "
           f"{launches // len(decode_s)} launches per decode step", flush=True)
@@ -1665,9 +2041,12 @@ def main() -> int:
           + f"), plain {pb_dev * 1e3:.1f} us), bound {bb_ms * 1e3:.2f} us",
           flush=True)
     # paged_verify at the captured verify step and at the phase 3 lens
-    vk_ms, v_how = device_ms(lambda: paged_verify(*v_args))
+    ver_t = timing(ms=device_ms(lambda: paged_verify(*v_args)),
+                   plain_ms=device_ms(lambda: ref.paged_verify_ref(*v_args),
+                                      iters=20))
+    vk_ms, vp_ms = ver_t["ms"], ver_t["plain_ms"]
+    v_how = ver_t["timed_by"]["ms"]
     vk_ev = cuda_ms(lambda: paged_verify(*v_args))
-    vp_ms, _ = device_ms(lambda: ref.paged_verify_ref(*v_args), iters=20)
     vb_ms, vb_by = verify_bound(v_args[0], v_args[1], v_args[3], v_args[4])
     print(f"[{card}] paged_verify at the captured verify step "
           f"(B={v_args[0].shape[0]}, Q={v_args[0].shape[1]}, "
@@ -1691,7 +2070,7 @@ def main() -> int:
     # the speculative step against the plain one, batch 8, one after the
     # other on this card
     step_t = [(label, *decode_profile(e, card, label, GenRequest,
-                                      SamplingParams, rng))
+                                      SamplingParams, rng)[:2])
               for label, e in (("plain decode", eng),
                                ("spec, drafter = target", spec_a["eng"]),
                                ("spec, 2-layer drafter", spec_b["eng"]))]
@@ -1738,25 +2117,24 @@ def main() -> int:
         "name": "paged_decode", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_decode.cu",
         "replaces": "src/repro/kernels/paged_decode.py:122",
-        "launches": launches, "max_abs_err": main_err, "ms": k_dev,
-        "plain_ms": p_dev, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": None}, {
+        "launches": launches, "max_abs_err": main_err, **dec_t,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}, {
         "name": "paged_verify", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_verify.cu",
         "replaces": "src/repro/kernels/paged_verify.py:130",
         "launches": spec_a["launches"][0] + spec_b["launches"][0],
-        "max_abs_err": v_err, "ms": vk_ms, "plain_ms": vp_ms,
-        "bound_ms": vb_ms, "bound_by": vb_by, "library_ms": None}]
+        "max_abs_err": v_err, **ver_t, "bound_ms": vb_ms, "bound_by": vb_by,
+        "library_ms": None}]
     for name, line in (("gather", 52), ("scatter", 86)):
         r = copy_t[16][name]
-        k, pl, lib = r["kernel"][0], r["plain"][0], r["library"][0]
         rows.append({
             "name": f"page_{name}", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/page_copy.cu",
             "replaces": f"src/repro/kernels/page_copy.py:{line}",
             "launches": copy_launches[name], "max_abs_err": copy_err,
-            "ms": k, "plain_ms": pl, "bound_ms": copy_t[16]["bound"],
-            "bound_by": "bytes", "library_ms": lib,
+            **timing(ms=r["kernel"], plain_ms=r["plain"],
+                     library_ms=r["library"]),
+            "bound_ms": copy_t[16]["bound"], "bound_by": "bytes",
             "shape": f"N=16 pages of bf16 pools {list(POOL)}"})
     H, K, hd, sH, P, N, G, chunk = dense["full"]
     rows += [{
@@ -1776,6 +2154,8 @@ def main() -> int:
         "library_ms": None,
         "shape": f"fp32 x (2, {sH}, 2048, {P}), B/C (2, {G}, 2048, {N}), "
                  f"chunk {chunk}"}]
+    for row in rows[:4]:                  # the four kernels of 4e's path
+        row["moe"] = moe_rows[row["name"]]
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1785,13 +2165,15 @@ def main() -> int:
 
 
 def decode_profile(eng, card, label, GenRequest, SamplingParams,
-                   rng) -> tuple:
+                   rng, on_steady=None) -> tuple:
     """Where a steady decode step's time goes, at a full batch (8
     sequences of 200-token prompts): the wall time and the tokens emitted
     in four steps, then torch.profiler (device activity only) over the
-    next four; the requests are cancelled after. Prints the device's busy
-    time per step against the unprofiled wall and the top kernels' time
-    per step. Returns (ms per step, tokens per second)."""
+    next four; `on_steady(eng)`, when given, runs after them, before the
+    requests are cancelled. Prints the device's busy time per step against
+    the unprofiled wall and the top kernels' time per step. Returns (ms
+    per step, tokens per second, device-busy ms per step, and the paged
+    kernels' device ms per step by kernel)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     vocab = eng.cfg.vocab
@@ -1818,6 +2200,8 @@ def decode_profile(eng, card, label, GenRequest, SamplingParams,
         for _ in range(steps):
             eng.step()
         torch.cuda.synchronize()
+    if on_steady is not None:
+        on_steady(eng)
     for r in reqs:
         eng.cancel(r.rid)
     events = device_events(prof)
@@ -1833,11 +2217,13 @@ def decode_profile(eng, card, label, GenRequest, SamplingParams,
               f"{e.count // steps:5d}/step  {e.key[:80]}", flush=True)
     # the combine is one kernel template for both: Q = 1 fixed (decode's)
     # or Q at run time (verify's)
+    paged = {}
     for kernel, keys in (("paged_verify (split + combine)",
                           r"paged_verify|split_combine_kernel<[^>]*false>"),
                          ("paged_decode (split + combine)",
                           r"paged_decode|split_combine_kernel<[^>]*true>")):
         mine = [e for e in events if re.search(keys, e.key)]
+        paged[kernel.split()[0]] = sum(map(dev_us, mine)) / 1e3 / steps
         if mine:
             parts = ", ".join(
                 f"{re.search(r'(\w+)<', e.key).group(1)} "
@@ -1846,12 +2232,13 @@ def decode_profile(eng, card, label, GenRequest, SamplingParams,
                   f"{sum(map(dev_us, mine)) / 1e3 / steps:.3f} ms/step "
                   f"({parts}) over {sum(e.count for e in mine) // steps} "
                   f"kernel launches per step", flush=True)
-    return 1e3 * wall, n / wall / steps
+    return 1e3 * wall, n / wall / steps, 1e3 * busy, paged
 
 
 def _to(tree: dict, device: str) -> dict:
     return {k: _to(v, device) if isinstance(v, dict) else v.to(device)
             for k, v in tree.items()}
+
 
 
 if __name__ == "__main__":

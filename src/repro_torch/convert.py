@@ -16,8 +16,10 @@ def from_jax_params(np_tree: dict, cfg: ModelConfig, device,
                     dtype) -> dict:
     """Convert `np_tree` (nested dicts of numpy arrays, e.g. the output of
     `jax.tree.map(np.asarray, params)`) and check it against the port's
-    own layout for `cfg`: every key and shape must match."""
-    want = init_params(cfg, torch.float32, "meta")
+    own layout for `cfg` in `dtype`: every key and shape must match, and
+    each leaf takes the layout's dtype (`dtype`, but fp32 for an MoE
+    router, as in the JAX package)."""
+    want = init_params(cfg, dtype, "meta")
 
     def walk(src: dict, ref: dict, path: str) -> dict:
         if set(src) != set(ref):
@@ -32,7 +34,7 @@ def from_jax_params(np_tree: dict, cfg: ModelConfig, device,
             if tuple(a.shape) != tuple(r.shape):
                 raise ValueError(f"{path}/{k}: shape {a.shape} != expected "
                                  f"{tuple(r.shape)}")
-            out[k] = torch.tensor(a, dtype=dtype, device=device)
+            out[k] = torch.tensor(a, dtype=r.dtype, device=device)
         return out
 
     return walk(np_tree, want, "")

@@ -15,8 +15,8 @@ device; its tokens equal the non-speculative engine's whatever the drafter
 proposes.
 
 The device is explicit: `device=None` means "cuda", and without CUDA the
-engine raises unless the caller asked for `device="cpu"`. What the port
-does not carry yet is refused loudly, never approximated: MoE models raise
+engine raises unless the caller asked for `device="cpu"`. It serves dense,
+MoE and VLM transformers, as the JAX engine does; other families raise
 `NotImplementedError`.
 """
 from __future__ import annotations
@@ -74,13 +74,11 @@ def resolve_device(device: Optional[str]) -> torch.device:
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "vlm"):
-        later = ("the MoE FFN is a later slice of the port"
-                 if cfg.family == "moe" else
-                 "ssm/hybrid replicas are modeled by the simulator")
+    if cfg.family not in ("dense", "moe", "vlm"):
         raise NotImplementedError(
-            f"the paged engine serves dense and VLM transformers; got "
-            f"{cfg.family} ({later})")
+            f"the paged engine serves transformer families (dense/moe/vlm); "
+            f"got {cfg.family} (ssm/hybrid replicas are modeled by the "
+            f"simulator)")
 
 
 class Engine:

@@ -1,5 +1,6 @@
 """Model steps for the paged serving engine (PyTorch port of
-`repro.serving.model_runner`, dense and early-fusion VLM transformers).
+`repro.serving.model_runner`: dense, MoE and early-fusion VLM
+transformers).
 
 The KV cache is a PAGED pool shared by all sequences,
 
@@ -50,6 +51,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (apply_mlp, embed_tokens, lm_logits,
                                       rms_norm)
+from repro_torch.models.moe import apply_moe
 from repro_torch.models.transformer import layer
 from repro_torch.serving.sampling import (fold_in, fold_key,
                                           sample_rows_impl, uniform)
@@ -63,8 +65,12 @@ def init_kv_pool(cfg: ModelConfig, n_pages: int, page_size: int,
 
 
 def _ffn(lp, h, cfg: ModelConfig):
+    """The FFN of one layer. An MoE layer's groups are the rows of `h`
+    as the step shapes it: a packed prefill (1, T_bucket, d) is one group
+    whose padding tokens take capacity too, decode (B, 1, d) and verify
+    (B, Q, d) one group per sequence, as in the JAX package."""
     if cfg.is_moe:
-        raise NotImplementedError("the MoE FFN is not ported yet")
+        return apply_moe(lp["moe"], h, cfg)[0]
     return apply_mlp(lp["mlp"], h, cfg)
 
 

@@ -31,6 +31,9 @@ COPIES = [
     "tenancy/ledger.py", "replica/blocks.py", "replica/hostpool.py",
     "replica/radix.py", "serving/request.py", "serving/bucketing.py",
     *CONFIGS, "configs/__init__.py",
+    "frontend/__init__.py", "frontend/api.py", "frontend/client.py",
+    "core/__init__.py", "core/metrics.py", "core/workloads.py",
+    "core/simulator.py", "core/system.py", "replica/backends.py",
 ]
 IMPORT = re.compile(r"^(\s*)(from|import) repro\.")
 # besides imports, the only line a verbatim copy may change: original line
@@ -42,7 +45,7 @@ RENAMED = {
         '    mod = importlib.import_module(f"repro_torch.configs.'
         '{_ARCH_MODULES[key]}")')},
 }
-SAME_CODE = ["replica/core.py", "serving/router.py"]
+SAME_CODE = ["replica/core.py", "serving/router.py", "replica/__init__.py"]
 
 
 @pytest.mark.parametrize("rel", COPIES)

@@ -3,8 +3,10 @@
 models; its own hot-path invariants hold (bucketed == exact, packed ==
 sequential, chunked prefill, no upload in steady state, bounded decode
 shapes); `ReplicaCore` + `TorchPagedBackend` makes the decision stream
-`JaxPagedBackend` makes on the replica-parity trace; and the entry points
-refuse what the port does not carry yet."""
+`JaxPagedBackend` makes on the replica-parity trace, and under the VTC
+disciplines on the tenancy-parity trace; the entry points need CUDA unless
+asked for the CPU and accept MoE; the converter keeps each leaf's
+dtype."""
 from __future__ import annotations
 
 import dataclasses
@@ -26,12 +28,13 @@ from repro.serving.bucketing import n_buckets
 from repro.serving.jax_backend import JaxPagedBackend
 from repro_torch.configs import get_config
 from repro_torch.convert import from_jax_params
-from repro_torch.models import init_params
+from repro_torch.models import init_params, leaves
 from repro_torch.replica import ReplicaCore, ReplicaCoreConfig
 from repro_torch.serving import (Engine, EngineConfig, GenRequest,
                                  SamplingParams, TorchPagedBackend)
 
 import test_replica_parity as rp
+import test_tenancy_parity as tenancy
 from test_serving_hotpath import MIXED
 
 ECFG = dict(page_size=8, n_pages=64, max_batch=4, max_seq_len=256,
@@ -194,6 +197,51 @@ def _drive_torch(core, trace: dict) -> dict:
     return cached
 
 
+@pytest.mark.parametrize("discipline", ["vtc", "wvtc"])
+def test_tenancy_decisions_match_jax_backend(qwen_reduced, qwen_model_params,
+                                             torch_qwen, discipline):
+    """`tests/test_tenancy_parity.py`'s multi-tenant trace (VTC reordering,
+    the cache-discount charge, a deadline shed, a cancellation) under
+    `discipline`: `TorchPagedBackend` makes `JaxPagedBackend`'s decision
+    stream byte for byte, with the same cached counts, sheds and per-tenant
+    counters."""
+    _, jparams = qwen_model_params
+    tcfg, tparams = torch_qwen
+    trace = tenancy._trace(qwen_reduced.vocab)
+    cfg = dataclasses.replace(tenancy.CFG, discipline=discipline)
+    jb = JaxPagedBackend(qwen_reduced, jparams, n_pages=cfg.n_pages,
+                         page_size=cfg.page_size, prefill_pad=16)
+    jcore = JaxReplicaCore(cfg, jb)
+    jb.bind(jcore)
+    jcached = tenancy._drive(jcore, trace)
+
+    tb = TorchPagedBackend(tcfg, tparams, n_pages=cfg.n_pages,
+                           page_size=cfg.page_size, device="cpu",
+                           prefill_pad=16)
+    tcore = ReplicaCore(ReplicaCoreConfig(**dataclasses.asdict(cfg)), tb)
+    tb.bind(tcore)
+    tcached: dict[int, int] = {}
+    for step in range(tenancy.N_STEPS):
+        for rid, user, prompt, max_new, dl in trace.get(step, ()):
+            tcore.submit(GenRequest(
+                prompt_tokens=prompt, rid=rid, user_id=user, deadline_s=dl,
+                sampling=SamplingParams(max_new_tokens=max_new)))
+        for rid in tenancy.CANCELS.get(step, ()):
+            assert tcore.cancel(rid) is not None
+        plan = tcore.begin_step()
+        for seq in plan.admitted:
+            tcached[seq.req.rid] = seq.req.cached_tokens
+        tcore.finish_step()
+
+    assert repr(tcore.decisions).encode() == repr(jcore.decisions).encode()
+    assert tcached == jcached
+    assert {"admit", "admit_fair", "shed", "cancel"} <= \
+        {e[0] for e in tcore.decisions}
+    assert tcore.sheds == jcore.sheds == 1
+    assert tcore.tenant_counters() == jcore.tenant_counters()
+    assert not tcore.running and not tcore.pending
+
+
 # ------------------------------------------------------------ entry points
 
 def test_engine_needs_cuda_unless_asked_for_cpu(torch_qwen):
@@ -210,10 +258,11 @@ def test_engine_needs_cuda_unless_asked_for_cpu(torch_qwen):
 
 @pytest.mark.parametrize("what", ["spec_k", "host_pages", "moe"])
 def test_unported_paths_raise(torch_qwen, what):
-    """MoE is refused. The host KV tier and speculation, each refused until
-    its slice landed, are now accepted: the tier allocates its host mirror;
-    speculation without a drafter raises ValueError, as the JAX backend
-    does, and with one the backend builds the drafter's pools."""
+    """Paths each refused until its slice landed, now accepted: the host
+    tier allocates its host mirror; speculation without a drafter raises
+    ValueError, as the JAX backend does, and with one the backend builds
+    the drafter's pools; an MoE engine, and an MoE drafter, build on the
+    CPU with the MoE layer stack."""
     cfg, params = torch_qwen
     if what == "spec_k":
         with pytest.raises(ValueError, match="draft"):
@@ -234,7 +283,49 @@ def test_unported_paths_raise(torch_qwen, what):
         return
     if what == "moe":
         moe = get_config("granite-moe-1b-a400m").reduced()
-        with pytest.raises(NotImplementedError, match="MoE"):
-            Engine(moe, params, device="cpu")
-        with pytest.raises(NotImplementedError, match="MoE"):
-            init_params(moe, torch.float32, "cpu")
+        mp = init_params(moe, torch.float32, "cpu")
+        assert set(mp["layers"]) == {"ln1", "attn", "ln2", "moe"}
+        eng = Engine(moe, mp, EngineConfig(**ECFG), device="cpu")
+        assert eng.backend.k_pages.shape[0] == moe.n_layers
+        eng = Engine(cfg, params, EngineConfig(**ECFG, spec_k=2),
+                     draft_cfg=moe, draft_params=mp, device="cpu")
+        assert eng.backend.dk_pages.shape[0] == moe.n_layers
+        for family in ("ssm", "hybrid"):
+            with pytest.raises(NotImplementedError, match=family):
+                Engine(dataclasses.replace(moe, family=family), mp,
+                       device="cpu")
+
+
+@pytest.mark.parametrize("name,dtype", [
+    ("granite-moe-1b-a400m", torch.bfloat16),
+    ("granite-moe-1b-a400m", torch.float32),
+    ("qwen3-0.6b", torch.bfloat16), ("llama31-8b", torch.float32)])
+def test_converter_keeps_each_leafs_dtype(name, dtype):
+    """A JAX tree in `dtype` converts leaf by leaf into the port's layout:
+    an MoE router stays fp32, as the JAX package keeps it, every other
+    leaf takes `dtype`; each value is the JAX leaf's, rounded once. A
+    dense tree converts as it did when one dtype was cast over every
+    leaf."""
+    jcfg = jax_config(name).reduced()
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    jp = build_model(jcfg, jdt).init(jax.random.PRNGKey(1))
+    tree = jax.tree.map(np.asarray, jp)
+    tcfg = get_config(name).reduced()
+    tp = from_jax_params(tree, tcfg, "cpu", dtype)
+    flat = jax.tree_util.tree_flatten_with_path(tree)[0]
+    assert len(flat) == len(list(leaves(tp)))
+    for path, a in flat:
+        keys = [p.key for p in path]
+        t = tp
+        for k in keys:
+            t = t[k]
+        want = torch.float32 if keys[-1] == "router" else dtype
+        assert t.dtype == want, keys
+        assert np.array_equal(t.float().numpy(), a.astype(np.float32))
+        if keys[-1] == "router":
+            continue
+        # the one-dtype cast, as before the layout gave each leaf its dtype
+        old = torch.tensor(np.asarray(a, np.float32), dtype=dtype)
+        assert torch.equal(t, old)
+    if tcfg.is_moe:
+        assert tp["layers"]["moe"]["router"].dtype == torch.float32

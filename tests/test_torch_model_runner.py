@@ -25,7 +25,8 @@ PS, NP = 8, 24
 _jax_token_fwd = jax.jit(jmr._token_fwd, static_argnames=("cfg",))
 
 
-@pytest.fixture(scope="module", params=["qwen3-0.6b", "llama31-8b"])
+@pytest.fixture(scope="module", params=["qwen3-0.6b", "llama31-8b",
+                                        "granite-moe-1b-a400m"])
 def models(request):
     jcfg = jax_config(request.param).reduced()
     jp = build_model(jcfg, jnp.float32).init(jax.random.PRNGKey(0))

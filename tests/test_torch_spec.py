@@ -82,7 +82,8 @@ def drafter(qwen_reduced):
 
 # ------------------------------------------------------------- step parity
 
-@pytest.fixture(scope="module", params=["qwen3-0.6b", "llama31-8b"])
+@pytest.fixture(scope="module", params=["qwen3-0.6b", "llama31-8b",
+                                        "granite-moe-1b-a400m"])
 def models(request):
     jcfg = jax_config(request.param).reduced()
     jp = build_model(jcfg, jnp.float32).init(jax.random.PRNGKey(0))
