@@ -63,6 +63,22 @@ Phases, in order; any failure exits non-zero:
      device busy, device ms of the expert products, the dispatch,
      paged_decode and the rest) and the four paged kernels' times at
      these widths, which the kernels line carries under "moe";
+  4f. the multi-process serving plane (`repro_torch.plane`) on the card:
+     paged_decode (fp32) and the page copies at qwen3-0.6b's widths (H 16,
+     K 8, hd 128, page 8) against their plain versions; then
+     `ServingPlane` with regions us and eu of two torch replica processes
+     each (full-width fp32 qwen3-0.6b, 28 layers, from the serve CLI's
+     seed-0 weights) and one LB process per region, all on this card,
+     the LBs pulling KV: 24 requests of `make_requests`, a kill -9 of
+     us-r0 while it streams (with us full, so a 160-token prompt sent to
+     us is forwarded to eu), and that prompt's replay at us, which pulls
+     eu's KV pages over the wire; every stream equals an in-parent
+     engine's token for token; checks each replica's device memory, the
+     failover (re-dispatched, nothing unresolved), the pull (cached tokens,
+     no timeout, the frame under MAX_FRAME) and the replicas' launches of
+     paged_decode, page_gather (eu) and page_scatter (us), and that every
+     process is reaped; prints start seconds, tok/s, client TTFT, the
+     failover's seconds and the pull's bytes and ms;
   5. check the engine's tokens against its plain CPU path on a small
      fp32 model: plain serving, the host tier, one router pull, and
      speculation (both drafters) against the plain non-speculative tokens;
@@ -86,6 +102,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -121,6 +138,10 @@ SSM = "mamba2-780m"                # ssd_scan's full widths
 POOL = (32, 1024, 16, 8, 128)      # Llama-3.1-8B pool: L, P, page, K, hd
 MOE = "granite-moe-1b-a400m"       # phase 4e's MoE model, full width
 MOE_SMALL = "granite-moe-1b-a400m-reduced"   # its fp32 CPU token check
+PLANE = "qwen3-0.6b"               # phase 4f's replicas' model, full width
+DRILL = 14                         # kill drill requests at us: both us
+                                   # replicas full (max_batch 4) and queued
+PULL_PROMPT = 160                  # the pulled prompt's tokens
 
 
 def fail(msg: str) -> None:
@@ -355,22 +376,26 @@ def kernel_inputs(dtype, lens, seed: int, Q=None, npg=None, pool=None,
                                           device=DEVICE)
 
 
-def paged_checks(pool, H: int) -> tuple[list, list]:
+def paged_checks(pool, H: int, dtypes=None,
+                 verify: bool = True) -> tuple[list, list]:
     """paged_decode and paged_verify against their plain versions at the
-    attention widths of `pool` (L, P, page, K, hd) with H query heads, bf16
-    and fp32, over garbage tables: decode at ragged lens up to 3001, at its
-    split plan's edges and over the whole pool; verify (Q = SPEC_K + 1) at
-    ragged lens, at Q=1 against the decode kernel, at its split plan's
-    edges (some partials fully masked) and over the whole pool. Returns
-    the decode and verify lens of the ragged checks."""
+    attention widths of `pool` (L, P, page, K, hd) with H query heads, in
+    `dtypes` (by default bf16 and fp32), over garbage tables: decode at
+    ragged lens up to 3001, at its split plan's edges and over the whole
+    pool; unless `verify` is False, verify (Q = SPEC_K + 1) at ragged
+    lens, at Q=1 against the decode kernel, at its split plan's edges
+    (some partials fully masked) and over the whole pool. Returns the
+    decode and verify lens of the ragged checks (the latter None without
+    verify)."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.paged_decode import paged_decode
     from repro_torch.kernels.paged_verify import paged_verify
+    dtypes = dtypes or (torch.bfloat16, torch.float32)
     page = pool[2]
     widths = f"H={H} K={pool[3]} hd={pool[4]}"
     lens = [1, 16, 17, 32, 100, 1000, 2048, 3001]
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in dtypes:
         q, kp, vp, table, ln = kernel_inputs(dtype, lens, seed=1, pool=pool,
                                              H=H)
         got = paged_decode(q, kp, vp, table, ln)
@@ -402,9 +427,11 @@ def paged_checks(pool, H: int) -> tuple[list, list]:
                   flush=True)
             del args, got
         torch.cuda.empty_cache()
+    if not verify:
+        return lens, None
 
     v_lens = [SPEC_K + 1, 16, 17, 32, 33, 100, 1000, 3001]
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in dtypes:
         name = f"paged_verify {str(dtype)[6:]} {widths}"
         args = kernel_inputs(dtype, v_lens, seed=3, Q=SPEC_K + 1, pool=pool,
                              H=H)
@@ -1774,6 +1801,317 @@ def moe_phase(card: str) -> dict:
                         if name.startswith("page_") else widths)
     return rows
 
+def drain(client, handles, timeout_s: float, label: str) -> None:
+    """Poll the client until every handle is terminal; fail past the
+    timeout."""
+    t0 = time.monotonic()
+    while any(not h.done for h in handles) \
+            and time.monotonic() - t0 < timeout_s:
+        client.poll()
+    late = sum(not h.done for h in handles)
+    if late:
+        fail(f"plane: {label}: {late} of {len(handles)} requests "
+             f"unresolved after {timeout_s} s")
+
+
+def poll_for(client, seconds: float) -> None:
+    t0 = time.monotonic()
+    while time.monotonic() - t0 < seconds:
+        client.poll()
+
+
+def check_streams(label: str, handles, ref: dict) -> None:
+    """Every request finished once, with the tokens the in-parent engine
+    gives its prompt: its streamed events (replays after a failover deduped
+    by index) and its result."""
+    for h in handles:
+        want = ref[h.request.prompt_tokens]
+        got = tuple(e.token for e in h.events)
+        if h.state.value != "finished":
+            fail(f"plane: {label}: request {h.request.rid} ended "
+                 f"{h.state.value}")
+        if (h.result.output_tokens != want or got != want
+                or [e.index for e in h.events] != list(range(len(want)))):
+            same = sum(a == b for a, b in zip(h.result.output_tokens, want))
+            fail(f"plane: {label}: request {h.request.rid} gave "
+                 f"{len(h.result.output_tokens)} tokens ({len(got)} "
+                 f"streamed), {same} of the in-parent engine's {len(want)} "
+                 f"at their places")
+
+
+def compute_apps() -> list[str]:
+    """nvidia-smi's compute processes on the card, one "pid, memory" line
+    each (a pid as the card's own pid namespace numbers it)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True)
+    return [line.strip() for line in out.stdout.splitlines() if line.strip()]
+
+
+def plane_phase(card: str) -> dict:
+    """Phase 4f, the multi-process serving plane on the card:
+    `ServingPlane` with two regions (us, eu) of two torch replica
+    processes each and one LB process per region, every replica full-width
+    fp32 qwen3-0.6b from the serve CLI's seed-0 weights, all on this card;
+    the LBs pull KV (`PULL_PARAMS`). Holds paged_decode (fp32) and the
+    page copies at qwen3-0.6b's widths first. Then 24 requests of
+    `make_requests` (6 sessions, 2 turns, 16 new tokens) spread over the
+    regions as `serve_procs` does; a kill -9 of us-r0 while it streams,
+    with both us replicas full and queued so that a 160-token prompt sent
+    to us is forwarded to eu; the prompt's replay at us, which pulls eu's
+    KV over the wire. Every stream equals an in-parent engine's with the
+    same weights and EngineConfig, token for token. Returns the launches
+    of the replicas' kernel wrappers and the phase's readings."""
+    import multiprocessing as mp
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.frontend import Client
+    from repro_torch.kernels.page_copy import page_gather, page_scatter
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models import init_weights
+    from repro_torch.plane import PlaneConfig, ServingPlane, wire
+    from repro_torch.routing import PULL, KVTransferParams
+    from repro_torch.serving import (Engine, EngineConfig, GenRequest,
+                                     SamplingParams)
+
+    cfg = get_config(PLANE)
+    ecfg = EngineConfig(page_size=8, n_pages=128, max_batch=4,
+                        max_seq_len=1024, prefill_pad=32)   # ReplicaSpec's
+    pool = (cfg.n_layers, 1024, ecfg.page_size, cfg.n_kv_heads, cfg.hd)
+    paged_checks(pool, cfg.n_heads, dtypes=(torch.float32,), verify=False)
+    copy_err = check_page_copies(torch.float32, page_gather, page_scatter,
+                                 pool)
+    torch.cuda.empty_cache()
+    print(f"kernel check: page_gather / page_scatter float32 pools {pool} "
+          f"({cfg.name}), N in (1, 5, 16, 100): bit-exact against the plain "
+          f"versions (max|err| {copy_err:.1e}), pages outside the ids "
+          f"untouched, gather then scatter restores the pool", flush=True)
+
+    # the streams every replica must give: an in-parent engine on the card
+    traffic = make_requests(cfg.vocab, 24, max_new=16)
+    rng = np.random.default_rng(20)
+    drill = [tuple(int(t) for t in rng.integers(
+        1, cfg.vocab, size=int(rng.integers(48, 96)))) for _ in range(DRILL)]
+    long_p = tuple(int(t) for t in rng.integers(1, cfg.vocab,
+                                                size=PULL_PROMPT))
+    t0 = time.perf_counter()
+    ref_eng = Engine(cfg, init_weights(cfg, torch.device(DEVICE)), ecfg,
+                     device=DEVICE)
+    ref = {}
+    for prompts, max_new in (([r.prompt_tokens for r in traffic], 16),
+                             (drill, 48), ([long_p], 16)):
+        res = ref_eng.generate([GenRequest(
+            prompt_tokens=p, sampling=SamplingParams(max_new_tokens=max_new))
+            for p in prompts])
+        ref.update({p: r.output_tokens for p, r in zip(prompts, res)})
+    print(f"plane: in-parent reference engine ({cfg.name} fp32, "
+          f"{cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads, hd {cfg.hd}, vocab "
+          f"{cfg.vocab}): {len(ref)} prompts in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    del ref_eng
+    torch.cuda.empty_cache()
+
+    pcfg = PlaneConfig(
+        regions=("us", "eu"), replicas=2, backend="torch", arch=PLANE,
+        device=None if DEVICE == "cuda" else DEVICE, wan_delay_ms=10.0,
+        cfg_overrides=(("kv_transfer", True), ("record_decisions", True),
+                       ("kv_params", KVTransferParams(**PULL_PARAMS))))
+    plane = ServingPlane(pcfg)
+    out: dict = {}
+    t0 = time.perf_counter()
+    try:
+        plane.start()
+        out["start_s"] = time.perf_counter() - t0
+        host = plane.host()
+        try:
+            out.update(plane_drills(plane, host, Client(host), cfg, traffic,
+                                    drill, long_p, ref, card))
+        finally:
+            host.close()
+        m = plane.metrics()
+    finally:
+        plane.shutdown()
+    left = [n for n, p in plane.procs.items() if p.is_alive()]
+    if left or mp.active_children():
+        fail(f"plane: processes left alive after shutdown: {left}")
+
+    reps = {s["id"]: s for s in m["per_process"] if s.get("kind") == "replica"}
+    lbs = {s["id"]: s for s in m["per_process"] if s.get("kind") == "lb"}
+    # the replicas' kernel launches (us-r0's died with it)
+    launches = {k: sum(s["kernel_launches"][k] for s in reps.values())
+                for k in ("paged_decode", "paged_verify", "page_gather",
+                          "page_scatter")}
+    for rid, s in sorted(reps.items()):
+        if not s["kernel_launches"]["paged_decode"] > 0:
+            fail(f"plane: {rid} launched paged_decode no time")
+    exporters = [r for r, s in reps.items()
+                 if any(e["n"] == PULL_PROMPT for e in s["kv_exports"])]
+    importers = [r for r, s in reps.items()
+                 if any(e["n"] == PULL_PROMPT for e in s["kv_imports"])]
+    if not (exporters and importers
+            and all(reps[r]["kernel_launches"]["page_gather"] > 0
+                    for r in exporters)
+            and all(reps[r]["kernel_launches"]["page_scatter"] > 0
+                    for r in importers)
+            and all(r.startswith("eu") for r in exporters)
+            and all(r.startswith("us") for r in importers)):
+        fail(f"plane: the {PULL_PROMPT}-token prefix was exported by "
+             f"{exporters} and imported by {importers}, with launches "
+             f"{ {r: s['kernel_launches'] for r, s in reps.items()} }")
+    exp = next(e for e in reps[exporters[0]]["kv_exports"]
+               if e["n"] == PULL_PROMPT)
+    imp = next(e for e in reps[importers[0]]["kv_imports"]
+               if e["n"] == PULL_PROMPT)
+    n, frame_bytes, codec = PULL_PROMPT, exp["frame_bytes"], exp["codec"]
+    if not exp["bytes"] <= frame_bytes <= wire.MAX_FRAME:
+        fail(f"plane: kvpages frame {frame_bytes} B, payload {exp['bytes']} "
+             f"B, MAX_FRAME {wire.MAX_FRAME} B")
+    us_lb = lbs["us"]
+    print(f"[{card}] plane pull: {us_lb['kv_decisions'][PULL]} PULL "
+          f"decisions at us ({us_lb['pulled_tokens']} tokens), eu "
+          f"{exporters[0]} -> us {importers[0]}: {n} tokens, kvpages frame "
+          f"{frame_bytes} B ({codec}; K+V payload {exp['bytes']} B) under "
+          f"MAX_FRAME {wire.MAX_FRAME} B; export (page_gather, D2H, encode, "
+          f"queue) {exp['ms']:.1f} ms, import (decode, page_scatter) "
+          f"{imp['ms']:.1f} ms; the replay's first token "
+          f"{1e3 * out['replay_ttft_s']:.1f} ms after its submit (the pull "
+          f"and an 8-token prefill; pull_timeout_s 2.0); "
+          f"kv_pull_timeouts {m['kv_pull_timeouts']}", flush=True)
+    if m["kv_pull_timeouts"] != 0:
+        fail(f"plane: {m['kv_pull_timeouts']} KV pulls timed out")
+    print(f"plane: launches in the surviving replicas' processes: "
+          f"{launches} (paged_decode in each of {sorted(reps)}; page_gather "
+          f"in {exporters}, page_scatter in {importers}); all "
+          f"{len(plane.procs)} processes reaped", flush=True)
+    out.update(launches=launches, frame_bytes=frame_bytes, codec=codec,
+               export_ms=exp["ms"], import_ms=imp["ms"],
+               payload_bytes=exp["bytes"])
+    return out
+
+
+def plane_drills(plane, host, client, cfg, traffic, drill, long_p, ref,
+                 card) -> dict:
+    """Phase 4f's traffic on a started plane (see `plane_phase`)."""
+    import torch
+    from repro_torch.routing import PULL
+    from repro_torch.serving import GenRequest, SamplingParams
+
+    def lb(m, region):
+        return next(s for s in m["per_process"]
+                    if s.get("kind") == "lb" and s["id"] == region)
+
+    def replicas(m):
+        return {s["id"]: s for s in m["per_process"]
+                if s.get("kind") == "replica"}
+
+    # ---- the proof that each replica runs on this card
+    m = plane.metrics()
+    reps = replicas(m)
+    apps = compute_apps()
+    for rid in sorted(reps):
+        s = reps[rid]
+        print(f"plane: {rid} pid {plane.pid_of(rid)} on {s['device']}: "
+              f"{s['device_allocated'] / 1e9:.3f} GB allocated by torch; "
+              f"started in {s['start_s']:.2f} s (import, CUDA init, fp32 "
+              f"weights, engine; the launcher waits 20 s)", flush=True)
+        if not (s["device"].startswith("cuda")
+                and s["device_allocated"] > 1e9):
+            fail(f"plane: {rid} is on {s['device']} with "
+                 f"{s['device_allocated']} B allocated")
+    print(f"plane: nvidia-smi compute apps ({len(apps)}): {apps}; the "
+          f"replicas' pids {[plane.pid_of(r) for r in sorted(reps)]}, the "
+          f"parent's {os.getpid()}", flush=True)
+    if len(apps) < 1 + len(reps):
+        fail(f"plane: nvidia-smi lists {len(apps)} compute processes, not "
+             f"the parent and {len(reps)} replicas")
+
+    # ---- 24 requests spread over the regions as serve_procs spreads them
+    regions = plane.cfg.regions
+    t0 = time.monotonic()
+    hs = [client.submit(r, region=regions[0] if i % 4 < 2
+                        else regions[i % len(regions)])
+          for i, r in enumerate(traffic)]
+    drain(client, hs, 300.0, "traffic")
+    wall = time.monotonic() - t0
+    check_streams("traffic", hs, ref)
+    n_out = sum(len(h.result.output_tokens) for h in hs)
+    ttft = statistics.median(h.events[0].t - h.request.arrival_s for h in hs)
+    m = plane.metrics()
+    pulls = sum(s["kv_decisions"][PULL] for s in m["per_process"]
+                if s.get("kind") == "lb")
+    print(f"[{card}] plane traffic: {len(hs)} requests ({n_out} tokens) "
+          f"in {wall:.2f} s = {n_out / wall:.1f} tok/s; client TTFT p50 "
+          f"{1e3 * ttft:.1f} ms; forwards {m['forwards']}, PULL decisions "
+          f"{pulls}, hit rate {m['hit_rate']:.3f}; every stream equal to the "
+          f"in-parent engine's", flush=True)
+    gaps = {r: round(s["max_hb_gap_s"], 3) for r, s in replicas(m).items()}
+    print(f"plane: after the traffic: redispatched {m['redispatched']}, LB "
+          f"events { {r: lb(m, r)['events'] for r in regions} }; each "
+          f"replica's longest heartbeat gap (s) {gaps}, against "
+          f"stale_after_s + partition_grace_s = "
+          f"{plane.cfg.stale_after_s + plane.cfg.partition_grace_s} s",
+          flush=True)
+
+    # ---- kill -9: us full and queued, the long prompt forwarded to eu
+    fwd0 = lb(m, "us")["forwarded_out"]
+    hd = [client.submit(GenRequest(prompt_tokens=p, sampling=SamplingParams(
+        max_new_tokens=48)), region="us") for p in drill]
+    t0 = time.monotonic()
+    while sum(bool(h.events) for h in hd) < 8 \
+            and time.monotonic() - t0 < 60:
+        client.poll()
+    poll_for(client, 0.3)           # heartbeats advertise the queues
+    hp = client.submit(GenRequest(prompt_tokens=long_p, sampling=
+                                  SamplingParams(max_new_tokens=16)),
+                       region="us")
+    poll_for(client, 0.3)
+    m = plane.metrics()
+    r0 = replicas(m)["us-r0"]
+    streaming = sum(bool(h.events) and not h.done for h in hd)
+    if not r0["outstanding"] > 0 or not streaming:
+        fail(f"plane: us-r0 holds {r0['outstanding']} requests, "
+             f"{streaming} streaming, at the kill")
+    fwd = lb(m, "us")["forwarded_out"] - fwd0
+    t_kill = time.monotonic()
+    pid = plane.kill_replica("us-r0")
+    drain(client, hd + [hp], 300.0, "kill -9 drill")
+    failover_s = time.monotonic() - t_kill
+    check_streams("kill -9 drill", hd + [hp], ref)
+    m = plane.metrics()
+    dups = host.counters()["duplicate_results"]
+    if not (m["redispatched"] >= 1 and m["unresolved"] == 0 and dups == 0):
+        fail(f"plane: kill -9 drill: redispatched {m['redispatched']}, "
+             f"unresolved {m['unresolved']}, duplicate results {dups}")
+    print(f"[{card}] plane kill -9: us-r0 (pid {pid}) killed holding "
+          f"{r0['outstanding']} requests; {len(hd) + 1} requests finished "
+          f"{failover_s:.2f} s after the kill, each once with the in-parent "
+          f"engine's tokens; redispatched {m['redispatched']}, unresolved "
+          f"{m['unresolved']}; us forwarded {fwd} before the kill",
+          flush=True)
+
+    # ---- the long prompt's replay at us pulls eu's KV over the wire
+    hr = client.submit(GenRequest(prompt_tokens=long_p, sampling=
+                                  SamplingParams(max_new_tokens=16)),
+                       region="us")
+    drain(client, [hr], 120.0, "replay")
+    check_streams("replay", [hr], ref)
+    if not hr.result.cached_tokens > 0:
+        fail(f"plane: the replay at us hit no cache "
+             f"({hr.result.cached_tokens} cached tokens)")
+    print(f"plane: the {len(long_p)}-token prompt's replay at us: "
+          f"{hr.result.cached_tokens} cached tokens, its tokens equal to "
+          f"the in-parent engine's", flush=True)
+    torch.cuda.synchronize()
+    return {"traffic_wall_s": wall, "traffic_tok_s": n_out / wall,
+            "ttft_p50_s": ttft, "failover_s": failover_s,
+            "replay_ttft_s": hr.events[0].t - hr.request.arrival_s,
+            "replay_rid": hr.request.rid,
+            "replay_cached": hr.result.cached_tokens}
+
 
 def main() -> int:
     import torch
@@ -1905,6 +2243,16 @@ def main() -> int:
 
     # ---- 4e. the MoE FFN at full width: granite-moe-1b-a400m
     moe_rows = moe_phase(card)
+
+    # ---- 4f. the multi-process serving plane: four replica processes of
+    # full-width fp32 qwen3-0.6b on this card behind two LB processes
+    plane = plane_phase(card)
+    print(f"[{card}] plane: 6 processes started in {plane['start_s']:.1f} "
+          f"s; traffic {plane['traffic_tok_s']:.1f} tok/s, client TTFT p50 "
+          f"{1e3 * plane['ttft_p50_s']:.1f} ms; kill -9 to the last finish "
+          f"{plane['failover_s']:.2f} s; pull {plane['frame_bytes']} B "
+          f"({plane['codec']}), replay TTFT "
+          f"{1e3 * plane['replay_ttft_s']:.1f} ms", flush=True)
 
     # ---- 5. the engine's tokens against its plain CPU path (small, fp32)
     small = get_config("llama31-8b-reduced")
@@ -2156,6 +2504,8 @@ def main() -> int:
                  f"chunk {chunk}"}]
     for row in rows[:4]:                  # the four kernels of 4e's path
         row["moe"] = moe_rows[row["name"]]
+    for row in rows[:4]:                  # 4f's replicas' launches
+        row["plane_launches"] = plane["launches"][row["name"]]
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

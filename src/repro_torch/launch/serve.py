@@ -10,14 +10,19 @@ Weights are fp32 from the port's seeded init (seed 0), as the JAX launcher
 builds fp32 params from `PRNGKey(0)`; the draws differ from `jax.random`'s.
 The engines run on the card unless `--device cpu` asks for the CPU.
 
-The multi-process socket plane (`--procs`, with its `--regions` and
-`--replicas`) is not ported yet and raises.
+`--procs` runs the multi-process socket plane (`repro_torch.plane`): one
+LB process per region, cost-model replica processes, TCP transport with
+sender-paced WAN delay. torch is not imported in that mode (nor in any of
+its children, which re-import this module under `spawn`), so this
+module's top level stays free of it.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
       --arch granite-moe-1b-a400m-reduced --requests 24 --max-new 16
   PYTHONPATH=src python -m repro_torch.launch.serve --multiregion \\
       --variant skylb --arch granite-moe-1b-a400m
+  PYTHONPATH=src python -m repro_torch.launch.serve --procs \\
+      --regions us,eu --replicas 2 --requests 8 --max-new 4
 """
 from __future__ import annotations
 
@@ -27,15 +32,9 @@ import time
 from typing import Optional
 
 import numpy as np
-import torch
 
-from repro_torch.configs import get_config
-from repro_torch.frontend import Client, EngineHost, RequestState, RouterHost
-from repro_torch.models import init_params
-from repro_torch.routing import build_routing
-from repro_torch.serving import (Engine, EngineConfig, GenRequest,
-                                 InProcessRouter, SamplingParams)
-from repro_torch.serving.engine import resolve_device
+from repro_torch.frontend import Client, RequestState
+from repro_torch.serving import GenRequest, SamplingParams
 
 REGIONS = ("us", "eu", "asia")
 
@@ -74,14 +73,14 @@ def _drain_and_stats(client: Client, handles: list) -> dict:
             else None}
 
 
-def init_weights(cfg, device: torch.device) -> dict:
-    """The launcher's fp32 weights for `cfg`, seed 0, made on `device`."""
-    return init_params(cfg, torch.float32, device,
-                       torch.Generator(device=device).manual_seed(0))
-
-
 def serve_single(arch: str, n_requests: int, max_new: int,
                  device: Optional[str] = None) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.frontend import EngineHost
+    from repro_torch.models import init_weights
+    from repro_torch.serving import Engine, EngineConfig
+    from repro_torch.serving.engine import resolve_device
+
     dev = resolve_device(device)
     cfg = get_config(arch)
     eng = Engine(cfg, init_weights(cfg, dev),
@@ -100,6 +99,13 @@ def serve_single(arch: str, n_requests: int, max_new: int,
 def serve_multiregion(arch: str, n_requests: int, max_new: int,
                       variant: str = "skylb",
                       device: Optional[str] = None) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.frontend import RouterHost
+    from repro_torch.models import init_weights
+    from repro_torch.routing import build_routing
+    from repro_torch.serving import Engine, EngineConfig, InProcessRouter
+    from repro_torch.serving.engine import resolve_device
+
     dev = resolve_device(device)
     cfg = get_config(arch)
     params = init_weights(cfg, dev)
@@ -127,6 +133,34 @@ def serve_multiregion(arch: str, n_requests: int, max_new: int,
     return out
 
 
+def serve_procs(n_requests: int, max_new: int, *, variant: str = "skylb",
+                regions: tuple = ("us", "eu"), replicas: int = 2) -> dict:
+    """The multi-process plane behind the same unified front API: real
+    LB / replica processes over TCP, cost-model engines (no torch anywhere
+    in the process tree but the launcher), sender-paced WAN delay."""
+    from repro_torch.plane import PlaneConfig, ServingPlane
+
+    plane = ServingPlane(PlaneConfig(
+        regions=regions, replicas=replicas, variant=variant,
+        backend="cost", wan_delay_ms=10.0, time_scale=0.02)).start()
+    host = plane.host()
+    try:
+        client = Client(host)
+        reqs = make_requests(5000, n_requests, max_new=max_new)
+        handles = [client.submit(req, region=regions[0] if i % 4 < 2
+                                 else regions[i % len(regions)])
+                   for i, req in enumerate(reqs)]
+        out = _drain_and_stats(client, handles)
+        m = plane.metrics()
+        out.update({"processes": m["n_processes"],
+                    "forwards": m["forwards"],
+                    "unresolved": m["unresolved"]})
+    finally:
+        host.close()
+        plane.shutdown()
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-0.6b-reduced")
@@ -134,9 +168,9 @@ def main(argv=None):
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--multiregion", action="store_true")
     ap.add_argument("--procs", action="store_true",
-                    help="multi-process socket plane (not ported yet)")
-    # --procs's own options; they configure nothing else, so they raise
-    # with it until the plane is ported
+                    help="multi-process socket plane (cost backend)")
+    # --procs's own options: they configure nothing else, so without it
+    # they raise instead of being ignored
     ap.add_argument("--regions", default=None,
                     help="--procs: comma-separated region list (us,eu)")
     ap.add_argument("--replicas", type=int, default=None,
@@ -146,14 +180,18 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
-    plane = [f for f, on in (("--procs", args.procs),
-                             ("--regions", args.regions is not None),
-                             ("--replicas", args.replicas is not None)) if on]
-    if plane:
-        raise NotImplementedError(
-            f"{', '.join(plane)}: the multi-process socket plane, which the "
-            "port does not carry yet (repro_torch.plane, the plane slice)")
-    if args.multiregion:
+    plane_only = [f for f, v in (("--regions", args.regions),
+                                 ("--replicas", args.replicas))
+                  if v is not None]
+    if plane_only and not args.procs:
+        raise ValueError(f"{', '.join(plane_only)} configure only the "
+                         f"multi-process plane (--procs)")
+    if args.procs:
+        out = serve_procs(args.requests, args.max_new,
+                          variant=args.variant.lower(),
+                          regions=tuple((args.regions or "us,eu").split(",")),
+                          replicas=args.replicas or 2)
+    elif args.multiregion:
         out = serve_multiregion(args.arch, args.requests, args.max_new,
                                 args.variant.lower(), device=args.device)
     else:

@@ -40,6 +40,13 @@ def init_params(cfg: ModelConfig, dtype=torch.bfloat16, device="cuda",
     return p
 
 
+def init_weights(cfg: ModelConfig, device) -> dict:
+    """The serving paths' fp32 weights for `cfg`, seed 0, made on `device`
+    (the counterpart of the JAX launcher's fp32 `PRNGKey(0)` params)."""
+    return init_params(cfg, torch.float32, device,
+                       torch.Generator(device=device).manual_seed(0))
+
+
 def layer(stack: dict, li: int) -> dict:
     """Layer `li`'s params as views into the L-stacked tree."""
     return {k: layer(v, li) if isinstance(v, dict) else v[li]

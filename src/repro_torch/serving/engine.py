@@ -283,11 +283,16 @@ class Engine:
         if req.on_done is not None:
             req.on_done(res)
 
+    def has_work(self) -> bool:
+        """Anything pending, running or loading: what the plane's replica
+        loop asks before it steps (as of its cost engine)."""
+        return bool(self.core.pending or self.core.running
+                    or self.core.loading)
+
     def run_until_idle(self, max_steps: int = 100_000) -> dict[int, GenResult]:
         for _ in range(max_steps):
             self.step()
-            if (not self.core.running and not self.core.pending
-                    and not self.core.loading):
+            if not self.has_work():
                 break
         return self.results
 

@@ -5,7 +5,11 @@ import statements (and, in `configs/__init__.py`, in the one module string
 it imports by name). A copy whose docstrings or import wrapping were
 adapted equals it in code: the same AST once docstrings are dropped and
 `repro_torch` modules are named `repro` again. An edit to one side without
-the other fails here instead of drifting silently."""
+the other fails here instead of drifting silently. The plane's adapted
+modules are held the same way outside what they change: `plane/lb.py`
+outside its one repaired statement, `plane/host.py` and
+`plane/replica.py` definition by definition outside the definitions the
+torch backend changes."""
 from __future__ import annotations
 
 import ast
@@ -34,6 +38,8 @@ COPIES = [
     "frontend/__init__.py", "frontend/api.py", "frontend/client.py",
     "core/__init__.py", "core/metrics.py", "core/workloads.py",
     "core/simulator.py", "core/system.py", "replica/backends.py",
+    "plane/wire.py", "plane/chaos.py", "plane/mailbox.py",
+    "plane/transport.py", "plane/metrics.py",
 ]
 IMPORT = re.compile(r"^(\s*)(from|import) repro\.")
 # besides imports, the only line a verbatim copy may change: original line
@@ -45,7 +51,8 @@ RENAMED = {
         '    mod = importlib.import_module(f"repro_torch.configs.'
         '{_ARCH_MODULES[key]}")')},
 }
-SAME_CODE = ["replica/core.py", "serving/router.py", "replica/__init__.py"]
+SAME_CODE = ["replica/core.py", "serving/router.py", "replica/__init__.py",
+             "plane/__init__.py"]
 
 
 @pytest.mark.parametrize("rel", COPIES)
@@ -66,6 +73,10 @@ def test_copy_matches_original(rel):
 def _code(path: Path, package: str) -> str:
     """The module's AST without docstrings, with `package` module names in
     import statements spelled `repro`."""
+    return ast.dump(_stripped(path, package))
+
+
+def _stripped(path: Path, package: str) -> ast.Module:
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
         if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
@@ -81,7 +92,7 @@ def _code(path: Path, package: str) -> str:
                                     alias.name)
         elif isinstance(node, ast.ImportFrom) and node.module:
             node.module = re.sub(rf"^{package}(?=\.|$)", "repro", node.module)
-    return ast.dump(tree)
+    return tree
 
 
 @pytest.mark.parametrize("rel", SAME_CODE)
@@ -90,3 +101,69 @@ def test_copy_has_the_originals_code(rel):
     assert copy.read_text().startswith(f"# Copy of src/repro/{rel} ")
     assert _code(copy, "repro_torch") == \
         _code(ROOT / "src" / "repro" / rel, "repro")
+
+
+# plane/lb.py: the one statement the port repairs (and the import it
+# needs), and the reference's statement in its place
+LB_REPAIR = (
+    """        # `ServingPlane.start` ships the spec through `dataclasses.asdict`,
+        # which turns a `KVTransferParams` override into a plain dict:
+        # rebuild it, or the first KV decision reads a dict's attributes
+        cfg = rspec.make_config(**{
+            k: (KVTransferParams(**v)
+                if k == "kv_params" and isinstance(v, dict) else v)
+            for k, v in dict(spec.cfg_overrides).items()})
+""",
+    "        cfg = rspec.make_config(**dict(spec.cfg_overrides))\n")
+LB_IMPORT = "from repro_torch.routing.kvtransfer import KVTransferParams\n"
+
+
+def test_plane_lb_is_the_original_outside_its_repair(tmp_path):
+    text = (ROOT / "src" / "repro_torch" / "plane" / "lb.py").read_text()
+    assert text.startswith("# Copy of src/repro/plane/lb.py ")
+    assert text.count(LB_REPAIR[0]) == 1 and text.count(LB_IMPORT) == 1
+    undone = tmp_path / "lb.py"
+    undone.write_text(text.replace(LB_REPAIR[0], LB_REPAIR[1])
+                      .replace(LB_IMPORT, ""))
+    assert _code(undone, "repro_torch") == \
+        _code(ROOT / "src" / "repro" / "plane" / "lb.py", "repro")
+
+
+def _defs(path: Path, package: str) -> dict:
+    """Each top-level definition and method of the module, by qualified
+    name, as `_code` dumps it (no docstrings, imports spelled `repro`)."""
+    out = {}
+    for node in _stripped(path, package).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            out[node.name] = ast.dump(node)
+        if isinstance(node, ast.ClassDef):
+            for sub in node.body:
+                if isinstance(sub, ast.FunctionDef):
+                    out[f"{node.name}.{sub.name}"] = ast.dump(sub)
+    return out
+
+
+# what the torch backend changes in each adapted plane module; every
+# other definition equals the original's
+PLANE_CHANGED = {
+    "plane/host.py": {"PlaneConfig", "ServingPlane", "ServingPlane.start"},
+    "plane/replica.py": {
+        "ReplicaSpec", "_build_engine", "_ReplicaServer",
+        "_ReplicaServer.__init__", "_ReplicaServer.handle",
+        "_ReplicaServer._import_kv", "_ReplicaServer._check_kv",
+        "_ReplicaServer.snapshot", "_ReplicaServer._heartbeat",
+        "_encode_kv", "_decode_kv_arrays", "_kv_bytes", "_kernel_launches",
+        "replica_main"},
+}
+
+
+@pytest.mark.parametrize("rel", sorted(PLANE_CHANGED))
+def test_plane_module_keeps_the_originals_definitions(rel):
+    copy = _defs(ROOT / "src" / "repro_torch" / rel, "repro_torch")
+    orig = _defs(ROOT / "src" / "repro" / rel, "repro")
+    changed = PLANE_CHANGED[rel]
+    assert set(copy) - set(orig) <= changed
+    kept = set(orig) - changed
+    assert kept <= set(copy), f"{rel} lost {sorted(kept - set(copy))}"
+    for name in sorted(kept):
+        assert copy[name] == orig[name], f"{rel}: {name} differs"

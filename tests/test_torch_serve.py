@@ -7,8 +7,9 @@ hosts give over JAX engines with the converted weights; the port's
 `serve_single` and `serve_multiregion` (`device="cpu"`, 24 requests of 8
 new tokens) give the JAX launcher's request count, engine steps, hit rates
 and forwards on a dense and an MoE reduced config, with the JAX weights
-converted into the port. The launcher needs CUDA unless asked for the CPU,
-refuses `--procs`, and `ProcessHost` waits for the plane slice."""
+converted into the port. The launcher needs CUDA unless asked for the CPU;
+`--procs` answers over the multi-process plane, whose options it alone
+takes; `ProcessHost` is the plane's client host."""
 from __future__ import annotations
 
 import jax
@@ -29,6 +30,7 @@ from repro.serving import GenRequest as JaxGenRequest
 from repro.serving import InProcessRouter as JaxRouter
 from repro.serving import SamplingParams as JaxSamplingParams
 import repro_torch.frontend as tfront
+import repro_torch.models as tmodels
 from repro_torch.configs import get_config
 from repro_torch.convert import from_jax_params
 from repro_torch.core.simulator import ReplicaConfig
@@ -143,7 +145,7 @@ def test_cli_matches_jax_launcher(monkeypatch, arch, mode):
     jp = build_model(jcfg, jnp.float32).init(jax.random.PRNGKey(0))
     tp = from_jax_params(jax.tree.map(np.asarray, jp), get_config(arch),
                          "cpu", torch.float32)
-    monkeypatch.setattr(tserve, "init_weights", lambda cfg, device: tp)
+    monkeypatch.setattr(tmodels, "init_weights", lambda cfg, device: tp)
     if mode == "single":
         want = jserve.serve_single(arch, N_REQ, MAX_NEW)
         got = tserve.serve_single(arch, N_REQ, MAX_NEW, device="cpu")
@@ -160,13 +162,7 @@ def test_cli_matches_jax_launcher(monkeypatch, arch, mode):
 
 
 def test_cli_entry_points_refuse():
-    """`--device` unset means the card, which this machine lacks; `--procs`
-    (the socket plane) raises until the plane slice lands; so does
-    `repro_torch.frontend.ProcessHost`."""
-    with pytest.raises(NotImplementedError, match="plane"):
-        tserve.main(["--procs", "--device", "cpu"])
-    with pytest.raises(ModuleNotFoundError, match="repro_torch.plane"):
-        tfront.ProcessHost
+    """`--device` unset means the card, which this machine lacks."""
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA: the default device runs")
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -180,9 +176,23 @@ def test_cli_entry_points_refuse():
                                   ["--multiregion", "--regions", "us"]])
 def test_cli_plane_options_refuse(argv):
     """`--regions` and `--replicas` configure only the plane, so either one
-    raises as `--procs` does instead of being ignored."""
-    with pytest.raises(NotImplementedError, match=argv[-2]):
+    without `--procs` raises instead of being ignored."""
+    with pytest.raises(ValueError, match=argv[-2]):
         tserve.main(argv + ["--device", "cpu"])
+
+
+def test_cli_procs_answers_over_the_plane(capsys):
+    """`--procs`: two LB and four cost-model replica processes over TCP
+    answer every request."""
+    out = tserve.main(["--procs", "--requests", "8", "--max-new", "4"])
+    assert out["requests"] == 8
+    assert out["unresolved"] == 0 and out["processes"] == 6
+    assert str(out) in capsys.readouterr().out
+
+
+def test_process_host_is_the_planes():
+    from repro_torch.plane.host import ProcessHost
+    assert tfront.ProcessHost is ProcessHost
 
 
 def test_cli_main_runs_on_the_cpu(capsys):
